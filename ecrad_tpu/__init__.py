@@ -1,4 +1,4 @@
-"""ecrad_tpu: TPU-native atmospheric radiative transfer framework.
+"""ecrad_tpu: atmospheric radiative transfer in JAX for accelerators.
 
 A from-scratch JAX/XLA/Pallas implementation with the capabilities of the
 ECMWF ecRad radiation scheme (reference: ecmwf-ifs/ecrad v1.7.1).  Computes
@@ -6,10 +6,10 @@ shortwave and longwave up/down radiative fluxes and heating rates for batches
 of independent atmospheric columns given pressure, temperature, gases, clouds,
 aerosols and surface properties.
 
-Design (TPU-first, not a port):
-  * Arrays are laid out ``(ncol, nlev, ng)`` with the spectral g-point axis on
-    TPU lanes; columns are the batch/shard axis (pure data parallelism over a
-    ``jax.sharding.Mesh``).
+Design (not a port):
+  * Arrays are laid out ``(ncol, nlev, ng)`` (or ``(nlev, ng, ncol)`` where
+    the fused solver kernels run, ecrad_tpu.backend); columns are the
+    batch/shard axis (pure data parallelism over a ``jax.sharding.Mesh``).
   * Vertical recurrences (adding method, overlap cumulants) are ``lax.scan``.
   * Gas/cloud/aerosol optics and solvers are decoupled and swappable, matching
     the reference architecture (radiation/radiation_interface.F90:333-499).

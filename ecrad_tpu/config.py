@@ -6,14 +6,15 @@ Mirrors the reference's two-phase config design
 ``consolidate`` step at setup time that derives file names, spectral sizes and
 mapping tables.
 
-TPU-first split:
+Static/traced split:
   * :class:`Config` is a **frozen, hashable dataclass** of user parameters
     plus small derived integers — it is passed to ``jax.jit`` as a static
     argument, so each distinct configuration compiles once.
   * All derived *array* state (k-distribution tables, cloud/aerosol LUTs,
     spectral mappings) lives in pytrees built at setup time
     (see ecrad_tpu.interface.setup_radiation) and is passed as traced
-    arguments, HBM-resident and replicated across the device mesh.
+    arguments, resident in device memory and replicated across the
+    device mesh.
 """
 
 from __future__ import annotations

@@ -3,10 +3,10 @@
 These mirror the reference derived types (radiation_gas.F90,
 radiation_cloud.F90, radiation_aerosol.F90, radiation_thermodynamics.F90,
 radiation_single_level.F90, radiation_flux.F90) but are plain immutable
-array pytrees laid out TPU-first:
+array pytrees:
 
   * batch (column) axis first everywhere: ``(ncol, nlev, ...)``
-  * the spectral axis (g-points / bands) is always **last** (TPU lanes)
+  * the spectral axis (g-points / bands) is always **last**
   * gases are one stacked array indexed by ``constants.GAS_INDEX``, always in
     volume mixing ratio (mol/mol); unit conversion happens at ingest
     (radiation_gas.F90 tracks per-gas units + scalings at run time instead).
@@ -14,15 +14,26 @@ array pytrees laid out TPU-first:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ecrad_tpu import constants
 
 
-@struct.dataclass
+def _pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree (every field a node),
+    with ``replace``."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    return jax.tree_util.register_dataclass(
+        cls, data_fields=[f.name for f in dataclasses.fields(cls)],
+        meta_fields=[])
+
+
+@_pytree_dataclass
 class Thermodynamics:
     """radiation_thermodynamics.F90:29-48."""
     pressure_hl: jnp.ndarray       # (ncol, nlev+1) Pa, TOA first
@@ -51,7 +62,7 @@ class Thermodynamics:
         return dp * (1.0 / constants.ACCEL_GRAVITY)
 
 
-@struct.dataclass
+@_pytree_dataclass
 class Gas:
     """Gas mixing ratios, always stored as VMR (mol/mol).
 
@@ -82,7 +93,7 @@ class Gas:
                       / constants.MOLAR_MASS[name])
 
 
-@struct.dataclass
+@_pytree_dataclass
 class Cloud:
     """radiation_cloud.F90:33-94 (two-type liquid/ice specialization).
 
@@ -123,7 +134,7 @@ class Cloud:
         return self.replace(fraction=jnp.where(keep, self.fraction, 0.0))
 
 
-@struct.dataclass
+@_pytree_dataclass
 class Aerosol:
     """radiation_aerosol.F90:28-56."""
     mixing_ratio: Optional[jnp.ndarray] = None    # (ncol, nlev, ntype) kg/kg
@@ -135,7 +146,7 @@ class Aerosol:
     ssa_lw: Optional[jnp.ndarray] = None
 
 
-@struct.dataclass
+@_pytree_dataclass
 class SingleLevel:
     """radiation_single_level.F90:29-101."""
     cos_sza: jnp.ndarray                 # (ncol,)
@@ -149,7 +160,7 @@ class SingleLevel:
     iseed: Optional[jnp.ndarray] = None  # (ncol,) int — McICA RNG seed
 
 
-@struct.dataclass
+@_pytree_dataclass
 class Flux:
     """Output fluxes (radiation_flux.F90:38-110). All in W m-2.
 

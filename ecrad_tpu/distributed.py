@@ -3,9 +3,9 @@
 The reference's distributed layer is MPI-lite: rank 0 reads setup files
 and broadcasts (utilities/easy_netcdf_read_mpi.F90:1-60,
 ifsaux/mpl_module.F90:29-67); the compute itself is embarrassingly
-parallel over columns.  The TPU-native design turns the I/O inside-out:
+parallel over columns.  Here the I/O is turned inside-out:
 
-* ``initialize()`` wires ``jax.distributed`` (env-driven on real pods,
+* ``initialize()`` wires ``jax.distributed`` (env-driven on a cluster,
   explicit coordinator for tests) and no-ops in single-process runs.
 * LUT tables are *replicated* by closure (every host reads them at
   setup — they are small and local; the analog of the MPI broadcast
@@ -35,7 +35,7 @@ def initialize(coordinator_address: Optional[str] = None,
     configured; returns True when running multi-process.
 
     With no arguments, initializes from the standard cluster env
-    (TPU pods auto-detect; otherwise JAX_COORDINATOR_ADDRESS /
+    (JAX_COORDINATOR_ADDRESS /
     JAX_NUM_PROCESSES / JAX_PROCESS_ID).  Single-process runs return
     False without touching the distributed runtime."""
     if coordinator_address is None:

@@ -7,7 +7,7 @@ read input → radiation over all columns → save_fluxes).
 
 The stochastic McICA sample is produced by the bit-exact host generator by
 default (reproducing the reference's lagged-Fibonacci stream); pass
-``--generator device`` to use the TPU-native counter-based generator.
+``--generator device`` to use the on-device counter-based generator.
 """
 
 from __future__ import annotations
@@ -121,7 +121,9 @@ def run(config_path: str, input_path: str, output_path: str,
     from ecrad_tpu.io.output import save_fluxes, save_net_fluxes
 
     from ecrad_tpu import profiling
+    from ecrad_tpu.jax_setup import enable_persistent_cache
 
+    enable_persistent_cache()
     config = Config.from_namelist(config_path)
     driver_config = DriverConfig.from_namelist(config_path)
 
@@ -165,20 +167,11 @@ def run(config_path: str, input_path: str, output_path: str,
             "input fields out of physical bounds; set "
             "do_correct_unphysical_inputs=true to clamp them")
 
-    # Level-windowed RRTMG interpolation on accelerators: probe the
-    # input grid for exact per-level index spans before tracing
-    # (rrtmg_interp module notes; no-op on CPU where gathers are used)
-    import os as _os
-    if jax.default_backend() != "cpu" and "rrtmg" in tables.gas \
-            and _os.environ.get("ECRAD_TPU_NO_WINDOWS", "0") in ("", "0"):
-        from ecrad_tpu.optics import rrtmg as rrtmg_mod
-        # windows live in the tables dict (part of the traced closure,
-        # never process-global state): a step traced with these windows
-        # cannot silently be fed others, and out-of-window inputs are
-        # NaN-poisoned by the interp guard (rrtmg_interp module notes)
-        tables.gas["rrtmg"]["windows"] = rrtmg_mod.compute_interp_windows(
-            tables.gas["rrtmg"], inp.thermodynamics.pressure_hl,
-            inp.thermodynamics.temperature_hl)
+    # Level-windowed one-hot RRTMG interpolation: probe the input grid
+    # for exact per-level index spans before tracing (rrtmg_interp
+    # module notes; the gather form needs no windows)
+    from ecrad_tpu.optics import rrtmg as rrtmg_mod
+    rrtmg_mod.install_interp_windows(tables, inp.thermodynamics)
 
     dt = jnp.float64 if dtype == "float64" else jnp.float32
 
@@ -337,7 +330,7 @@ def run(config_path: str, input_path: str, output_path: str,
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="ecrad_tpu",
-        description="TPU-native ecRad-equivalent offline radiation driver")
+        description="JAX ecRad-equivalent offline radiation driver")
     ap.add_argument("config")
     ap.add_argument("input")
     ap.add_argument("output")
@@ -347,7 +340,7 @@ def main(argv=None):
     ap.add_argument("--generator", default="exact",
                     choices=["exact", "device"],
                     help="McICA cloud generator: bit-exact host port or "
-                         "TPU-native counter-based")
+                         "on-device counter-based")
     args = ap.parse_args(argv)
     run(args.config, args.input, args.output, dtype=args.dtype,
         nrepeat=args.nrepeat, generator=args.generator)

@@ -3,13 +3,13 @@ reference's ``gas_type`` (radiation/radiation_gas.F90:36-79) with
 ``put``/``put_well_mixed``/``scale``/``set_units``/``assert_units``/
 ``get``/``reverse``/``out_of_physical_bounds``.
 
-TPU-native design: instead of a mutable derived type, :class:`Gas` is an
+Design: instead of a mutable derived type, :class:`Gas` is an
 immutable pytree whose array payload is one ``(ncol, nlev, NUM_GASES)``
 mixing-ratio block (always batched — no per-gas ragged arrays) and whose
 units/scale/presence metadata are *static* Python state.  All unit
 conversions happen at trace time as a single elementwise multiply by a
-per-gas vector, so ``set_units`` costs one fused VPU op regardless of how
-many gases convert (the reference loops per gas,
+per-gas vector, so ``set_units`` costs one fused elementwise op
+regardless of how many gases convert (the reference loops per gas,
 radiation_gas.F90:412-464).  Methods return new objects; the payload is
 jit/vmap/shard_map-safe.
 

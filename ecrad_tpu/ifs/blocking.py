@@ -7,7 +7,7 @@ nfields, ngpblks)`` super-array with computed field offsets
 ifs_copy_inputs_to_blocked L275, nproma/ngpblks math L328-330), runs
 the radiation scheme block by block, and scatters the fluxes back.
 
-TPU-native equivalent: the super-array is ``(ngpblks, nproma, nfld)``
+Equivalent here: the super-array is ``(ngpblks, nproma, nfld)``
 (blocks leading so one block is a contiguous (nproma, nfld) slab), the
 offset table is derived from the actual keyword arrays, and each block
 goes through the SAME jitted ``radiation_scheme`` executable (the

@@ -53,7 +53,9 @@ def run_ifs(config_path: str, input_path: str, output_path: str = None,
     from ecrad_tpu.io.input import DriverConfig, read_input
     from ecrad_tpu.io.netcdf import NcFile
     from ecrad_tpu.io.output import save_net_fluxes
+    from ecrad_tpu.jax_setup import enable_persistent_cache
 
+    enable_persistent_cache()
     config = Config.from_namelist(config_path)
     driver_config = DriverConfig.from_namelist(config_path)
     config = resolve_data_dir(config, config_path)

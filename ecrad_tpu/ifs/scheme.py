@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ecrad_tpu import constants
@@ -44,6 +45,11 @@ class RadiationScheme(NamedTuple):
     # radiation_config.F90:1724-1764) — None for band-only gas optics
     ig_uv_bio: Optional[np.ndarray] = None
     weight_uv_bio: Optional[np.ndarray] = None
+
+
+def _mm(a, b):
+    """Matrix product at full f32 precision (never TF32)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def setup_radiation_scheme(config: Config, data_dir: str = None,
@@ -238,16 +244,16 @@ def radiation_scheme(scheme: RadiationScheme, *,
     sdb_clear = flux.sw_dn_surf_clear_band
     wuv = jnp.asarray(scheme.weight_uv)
     wpar = jnp.asarray(scheme.weight_par)
-    out["flux_uv"] = sdb[:, jnp.asarray(scheme.iband_uv)] @ wuv
-    out["flux_par"] = sdb[:, jnp.asarray(scheme.iband_par)] @ wpar
-    out["flux_par_clear"] = \
-        sdb_clear[:, jnp.asarray(scheme.iband_par)] @ wpar
+    out["flux_uv"] = _mm(sdb[:, jnp.asarray(scheme.iband_uv)], wuv)
+    out["flux_par"] = _mm(sdb[:, jnp.asarray(scheme.iband_par)], wpar)
+    out["flux_par_clear"] = _mm(
+        sdb_clear[:, jnp.asarray(scheme.iband_par)], wpar)
     if scheme.ig_uv_bio is not None:
         # biologically effective UV (divide by 40 for UV index,
         # radiation_config.F90:1722-1724)
-        out["flux_uv_biological"] = (
-            sdb[:, jnp.asarray(scheme.ig_uv_bio)]
-            @ jnp.asarray(scheme.weight_uv_bio))
+        out["flux_uv_biological"] = _mm(
+            sdb[:, jnp.asarray(scheme.ig_uv_bio)],
+            jnp.asarray(scheme.weight_uv_bio))
 
     # effective broadband emissivity (L327-333)
     black_body_net = out["flux_lw_dn_surf"] \

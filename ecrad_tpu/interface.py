@@ -10,10 +10,11 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ecrad_tpu import constants
+from ecrad_tpu import backend, constants
 from ecrad_tpu.config import Config, GasModel, Solver
 from ecrad_tpu.containers import Flux
 from ecrad_tpu.optics import aerosol as aerosol_mod
@@ -25,8 +26,13 @@ from ecrad_tpu.optics import rrtmg, rrtmg_data, spectral
 from ecrad_tpu.solvers import cloudless, mcica, spartacus, tripleclouds
 
 
+def _mm(a, b):
+    """Matrix product at full f32 precision (never TF32)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 class Tables(NamedTuple):
-    """Setup-time derived arrays (HBM-resident pytree, replicated)."""
+    """Setup-time derived arrays (device-resident pytree, replicated)."""
     gas: Dict                      # gas-optics tables
     gas_meta: Optional[Dict] = None       # ecCKD static metadata
     sw_albedo_weights: Optional[np.ndarray] = None   # (nalbedo, nbands_sw)
@@ -260,8 +266,8 @@ def setup_radiation(config: Config, data_dir: str = None):
             from ecrad_tpu.data import find_data_file
             with NcFile(find_data_file(ddir, pdf_file)) as f:
                 pdf_tables = {"fsd": f.get("fsd"), "val": f.get("x").T}
-            # Chebyshev fit of the inverse-CDF LUT for the TPU device
-            # generator (gathers have no fast path on the TPU VPU)
+            # Chebyshev fit of the inverse-CDF LUT for the on-device
+            # generator (sampling without a gather)
             from ecrad_tpu.solvers.cloud_generator import fit_pdf_cheb
             pdf_tables["cheb_fit"] = fit_pdf_cheb(pdf_tables)
 
@@ -330,10 +336,10 @@ def get_albedos(config: Config, tables: Tables, sw_albedo,
                               else sw_albedo_diffuse_g)
     else:
         w = jnp.asarray(tables.sw_albedo_weights)       # (nalb, nband)
-        alb_band = sw_albedo @ w                        # (ncol, nband)
+        alb_band = _mm(sw_albedo, w)                    # (ncol, nband)
         sw_albedo_diffuse_g = alb_band[:, band_g_sw]
         if sw_albedo_direct is not None:
-            sw_albedo_direct_g = (sw_albedo_direct @ w)[:, band_g_sw]
+            sw_albedo_direct_g = _mm(sw_albedo_direct, w)[:, band_g_sw]
         else:
             sw_albedo_direct_g = sw_albedo_diffuse_g
 
@@ -342,7 +348,7 @@ def get_albedos(config: Config, tables: Tables, sw_albedo,
         lw_albedo_g = 1.0 - lw_emissivity[:, idx]
     else:
         w = jnp.asarray(tables.lw_emiss_weights)
-        lw_albedo_g = ((1.0 - lw_emissivity) @ w)[:, band_g_lw]
+        lw_albedo_g = _mm(1.0 - lw_emissivity, w)[:, band_g_lw]
 
     return sw_albedo_direct_g, sw_albedo_diffuse_g, lw_albedo_g
 
@@ -377,27 +383,22 @@ def indexed_sum_g(x_g, band_from_g, nbands: int):
     band_from_g = jnp.asarray(band_from_g)
     onehot = (band_from_g[:, None]
               == jnp.arange(nbands)[None, :]).astype(x_g.dtype)
-    return x_g @ onehot
+    return _mm(x_g, onehot)
 
 
 def use_kernel_layout(config: Config, tables: Tables, cloud) -> bool:
-    """True when the hot path should run end-to-end in the fused-solver
+    """True when the hot path should run end to end in the fused-solver
     kernel layout (nlev, ng, ncol): RRTMG gas optics, the cloud
-    generator and the McICA solver sweeps all produce/consume the big
-    (ncol·nlev·ng) fields in that layout, eliminating the 3-5 ms/157 MB
-    relayout copies between stages that dominated the round-3 profile.
+    generator and the fused McICA sweeps then produce and consume the
+    big (ncol*nlev*ng) fields in that layout, with no relayout copy
+    between stages.
 
-    Restricted to the configurations the fused Pallas solvers cover
-    (accelerator backend, RRTMG gas models, McICA/homogeneous solvers,
-    no per-g spectral-profile outputs); everything else uses the
-    classic (ncol, nlev, ng) layout.  ECRAD_TPU_LAYOUT=cln forces the
-    classic layout (debug/AB-testing); =knl skips only this env check,
-    the structural conditions below still apply."""
-    import os
-    from ecrad_tpu.solvers import adding
-    if os.environ.get("ECRAD_TPU_LAYOUT", "auto").lower() == "cln":
-        return False
-    if adding._mode() != "pallas":
+    Restricted to where the backend chooses the fused sweeps
+    (``backend.choices().layout``) and to the configurations they cover:
+    RRTMG gas models, McICA/homogeneous solvers, no per-g spectral
+    profile outputs; everything else uses the classic (ncol, nlev, ng)
+    layout."""
+    if backend.choices().layout != "knl":
         return False
     if cloud is None or not config.do_clouds:
         return False
@@ -406,32 +407,22 @@ def use_kernel_layout(config: Config, tables: Tables, cloud) -> bool:
     # a pre-supplied stochastic sample (host bit-exact generator, or a
     # user of the ifs scheme API) arrives in classic layout — detect by
     # shape and stay classic.  (Degenerate ambiguity requires
-    # ncol == nlev == ng; force via ECRAD_TPU_LAYOUT=cln if ever hit.)
+    # ncol == nlev == ng.)
     if isinstance(cloud, dict):
         frac_shape = tuple(cloud["fraction"].shape)
         for k in ("od_scaling_sw", "od_scaling_lw"):
             if k in cloud and tuple(cloud[k].shape[:2]) == frac_shape:
                 return False
-    ok = (Solver.MCICA, Solver.HOMOGENEOUS, Solver.TRIPLECLOUDS)
-    if (Solver.TRIPLECLOUDS in (config.lw_solver, config.sw_solver)
-            and config.nregions != 3):
-        return False
+    ok = (Solver.MCICA, Solver.HOMOGENEOUS)
     if config.do_lw:
-        if config.gas_model_lw != GasModel.RRTMG:
-            return False
-        if config.lw_solver not in ok:
-            return False
-        if (not config.do_lw_cloud_scattering
+        if (config.gas_model_lw != GasModel.RRTMG
+                or config.lw_solver not in ok
+                or not config.do_lw_cloud_scattering
                 or config.do_lw_aerosol_scattering):
             return False
-        if mcica._gcounts(tables.band_from_g_lw) is None:
-            return False
     if config.do_sw:
-        if config.gas_model_sw != GasModel.RRTMG:
-            return False
-        if config.sw_solver not in ok:
-            return False
-        if mcica._gcounts(tables.band_from_g_sw) is None:
+        if (config.gas_model_sw != GasModel.RRTMG
+                or config.sw_solver not in ok):
             return False
     return True
 
@@ -760,7 +751,7 @@ def radiation(config: Config, tables: Tables, *,
                 cl["od_lw"], cl["ssa_lw"], cl["g_lw"],
                 tables.band_from_g_lw, frac, cloud["fractional_std"],
                 cloud["overlap_param"], planck_hl, lw_emission,
-                lw_albedo_g, spec_matrix=spec_lw_m, layout=layout)
+                lw_albedo_g, spec_matrix=spec_lw_m)
         elif config.lw_solver == Solver.SPARTACUS:
             perm = _spartacus_perm(config, is_sw=False)
             pj = jnp.asarray(perm)
@@ -816,7 +807,7 @@ def radiation(config: Config, tables: Tables, *,
                     lw_dn_surf_g, tables.band_from_g_lw,
                     config.n_bands_lw)
                 w = jnp.asarray(tables.lw_emiss_weights)
-                flux_kw["lw_dn_surf_canopy"] = lw_dn_band @ w.T
+                flux_kw["lw_dn_surf_canopy"] = _mm(lw_dn_band, w.T)
 
     if config.do_sw:
         if config.sw_solver == Solver.CLOUDLESS or not do_clouds:
@@ -850,7 +841,7 @@ def radiation(config: Config, tables: Tables, *,
                 tables.band_from_g_sw, frac, cloud["fractional_std"],
                 cloud["overlap_param"], go.incoming_sw, cos_sza,
                 sw_albedo_diffuse_g, sw_albedo_direct_g,
-                spec_matrix=spec_sw_m, layout=layout)
+                spec_matrix=spec_sw_m)
         elif config.sw_solver == Solver.SPARTACUS:
             perm = _spartacus_perm(config, is_sw=True)
             pj = jnp.asarray(perm)
@@ -952,8 +943,8 @@ def radiation(config: Config, tables: Tables, *,
                     sw_dn_diffuse_surf_g, tables.band_from_g_sw,
                     config.n_bands_sw)
                 w = jnp.asarray(tables.sw_albedo_weights)  # (nalb, nband)
-                canopy_dir = dir_band @ w.T
-                canopy_tot = tot_band @ w.T
+                canopy_dir = _mm(dir_band, w.T)
+                canopy_tot = _mm(tot_band, w.T)
                 flux_kw["sw_dn_direct_surf_canopy"] = canopy_dir
                 flux_kw["sw_dn_diffuse_surf_canopy"] = (canopy_tot
                                                        - canopy_dir)

@@ -20,7 +20,7 @@ class NcFile:
     ``col_range=(start, stop)``: per-host sharded read — every variable
     whose leading dimension is the column dimension is read as that
     slab only (lazy mmap slice, so each host touches just its columns;
-    the TPU-native analog of the reference's rank-0-read+broadcast,
+    the analog of the reference's rank-0-read+broadcast,
     utilities/easy_netcdf_read_mpi.F90, turned inside-out: inputs are
     column-sharded so each host reads its own shard)."""
 

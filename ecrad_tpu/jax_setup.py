@@ -1,37 +1,37 @@
-"""JAX runtime configuration helpers.
+"""JAX runtime configuration: the persistent compilation cache.
 
-Enables (a) the persistent compilation cache so repeat driver/bench/test
-runs skip the 20-120s XLA compiles (the reference's setup is
-milliseconds — radiation_interface.F90:37 — so cold-compile cost must be
-one-time), and (b) HIGHEST default matmul precision: the TPU default
-lowers f32 dots to bf16 passes, which pushes the surface-albedo mapping
-and band reductions past the reference's single-precision flux
-thresholds (LW/SW 0.5 W m-2, test/ifs/CMakeLists.txt:15-18).  All dots
-in this framework are tiny or interpolation matmuls where full f32
-accuracy is required, so HIGHEST costs nothing measurable."""
+Repeat driver, benchmark and test runs skip the 20-120 s XLA compiles
+(the reference's setup is milliseconds — radiation_interface.F90:37 —
+so the compile cost must be paid once).  Where ``JAX_COMPILATION_CACHE_DIR``
+is set, JAX already uses that directory and this module sets no other;
+otherwise the cache lives at a fixed ``<repo>/.jax_cache`` (the path is
+part of the cache key, so it must not move between runs).
+
+Matmul precision is not set here: every f32 contraction on the device
+path names its own precision."""
 
 from __future__ import annotations
 
 import os
 
-_DONE = False
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
 
 
-def enable_persistent_cache(cache_dir: str = None) -> None:
-    global _DONE
-    if _DONE:
-        return
+def cache_dir() -> str:
+    """The compilation cache directory in use."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or REPO_CACHE_DIR
+
+
+def enable_persistent_cache() -> str:
+    """Turn on the persistent compilation cache; returns its directory."""
     import jax
 
-    cache_dir = (cache_dir
-                 or os.environ.get("ECRAD_TPU_JAX_CACHE")
-                 or os.path.expanduser("~/.cache/ecrad_tpu_jax"))
-    os.makedirs(cache_dir, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # older jax without these flags
-    jax.config.update("jax_default_matmul_precision", "highest")
-    _DONE = True
+    path = cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return path

@@ -7,9 +7,10 @@ equivalent native pieces of this framework's host runtime.  Currently:
   generator (the serial host-side hot spot of the CLI driver),
   OpenMP-parallel over columns like driver/ecrad_driver.F90:339-384.
 
-The shared library is built on demand with g++ and cached next to the
-sources; ``lib()`` returns None if no compiler is available, and callers
-fall back to the NumPy implementation.
+The shared library is built from source on first use with g++ into
+``build/`` beside the sources (not committed); ``lib()`` returns None if
+no compiler is available, and callers fall back to the NumPy
+implementation.
 """
 
 from __future__ import annotations
@@ -22,15 +23,20 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "cloud_generator.cc")
-_LIB = os.path.join(_DIR, "libecrad_native.so")
+_LIB = os.path.join(_DIR, "build", "libecrad_native.so")
 _lib = None
 _tried = False
 
 
 def _build():
+    """Compile to a private name, then rename into place, so processes
+    building at once never load a half-written library."""
+    os.makedirs(os.path.dirname(_LIB), exist_ok=True)
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = ["g++", "-O2", "-fPIC", "-shared", "-fopenmp", "-std=c++17",
-           _SRC, "-o", _LIB]
+           _SRC, "-o", tmp]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _LIB)
 
 
 def lib():

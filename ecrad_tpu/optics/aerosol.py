@@ -352,7 +352,7 @@ def aerosol_band_properties(config: Config, tables: Dict, pressure_hl,
     out = jnp.dot(W.reshape(-1, W.shape[-1]),
                   jnp.asarray(table, factor.dtype),
                   preferred_element_type=factor.dtype,
-                  precision=jax.lax.Precision.HIGH)
+                  precision=jax.lax.Precision.HIGHEST)
     out = out.reshape(factor.shape + (nprop,))
 
     s = np.cumsum([0, nb_sw, nb_sw, nb_sw, nb_lw, nb_lw, nb_lw])

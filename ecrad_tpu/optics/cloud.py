@@ -5,7 +5,7 @@ radiation_liquid_optics_socrates.F90, radiation_liquid_optics_slingo.F90,
 radiation_ice_optics_fu.F90, radiation_ice_optics_yi.F90.
 
 Vectorized over (ncol, nlev) with bands last; coefficient tables are tiny
-(nband × ~16) and live in VMEM after fusion.
+(nband × ~16) and are fused into the elementwise kernels.
 """
 
 from __future__ import annotations

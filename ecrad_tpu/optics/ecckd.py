@@ -7,7 +7,7 @@ regular log-pressure × temperature(-offset) grid with four concentration-
 dependence types, a Planck LUT (LW) or normalized solar irradiance +
 Rayleigh coefficients (SW), and an embedded spectral definition.
 
-TPU formulation: the LUTs are small, regular grids → pure jnp gather +
+Formulation: the LUTs are small, regular grids → pure jnp gather +
 multilinear interpolation with the g axis on lanes; everything fuses into
 a handful of elementwise kernels.
 """
@@ -102,11 +102,10 @@ def load_ckd_model(path: str):
 def pt_onehot(tables: Dict, meta: Dict, pressure_hl, temperature_fl):
     """Weighted one-hot over the flat (t, p) LUT grid: W4 has the four
     bilinear corner weights as its only nonzeros, so ``W4 @ table`` IS
-    the interpolation — one MXU matmul over the tiny (~318, ng) tables
-    replaces the 4 row-gathers per gas that dominated the ecCKD step
-    on TPU (measured 68 ms of gathers at ncol=2048; the matmul form
-    runs at a few ms).  Shareable between the SW and LW models when
-    their (pressure, temperature) grids coincide (grid_signature)."""
+    the interpolation — one matmul (HIGHEST precision) over the tiny
+    (~318, ng) tables in place of 4 row-gathers per gas.  Shareable
+    between the SW and LW models when their (pressure, temperature)
+    grids coincide (grid_signature)."""
     dtype = pressure_hl.dtype
     npress, ntemp = meta["npress"], meta["ntemp"]
     log_p = jnp.log(0.5 * (pressure_hl[:, :-1] + pressure_hl[:, 1:]))
@@ -167,14 +166,12 @@ def calc_optical_depth(tables: Dict, meta: Dict, pressure_hl,
     W4 = pt_onehot(tables, meta, pressure_hl, temperature_fl) \
         if pt_w is None else pt_w
 
-    def mxu(W, T):
-        """(B, R) @ (R, G) at HIGH (3-pass bf16) precision — relative
-        error ~5e-7, far below the golden/equivalence thresholds, at
-        half the pass count of HIGHEST."""
+    def lut_dot(W, T):
+        """(B, R) @ (R, G) at full f32 precision."""
         return jax.lax.dot_general(
             W, T, (((1,), (0,)), ((), ())),
             preferred_element_type=W.dtype,
-            precision=jax.lax.Precision.HIGH)
+            precision=jax.lax.Precision.HIGHEST)
 
     simple, lut = [], []
     for g in meta["gases"]:
@@ -187,7 +184,7 @@ def calc_optical_depth(tables: Dict, meta: Dict, pressure_hl,
                         np.float64).reshape(ntemp * npress, -1)
              for g in simple], axis=1)
         ng = T_all.shape[1] // len(simple)
-        K_all = mxu(W4, jnp.asarray(T_all, dtype)).reshape(
+        K_all = lut_dot(W4, jnp.asarray(T_all, dtype)).reshape(
             ncol, nlev, len(simple), ng)
         for i, g in enumerate(simple):
             gname = g["name"]
@@ -224,13 +221,14 @@ def calc_optical_depth(tables: Dict, meta: Dict, pressure_hl,
         T_c = jnp.asarray(
             np.transpose(tab, (1, 2, 0, 3)).reshape(ntemp * npress,
                                                     nconc * ng), dtype)
-        K_c = mxu(W4, T_c).reshape(ncol, nlev, nconc, ng)
+        K_c = lut_dot(W4, T_c).reshape(ncol, nlev, nconc, ng)
         iota_c = jnp.arange(nconc, dtype=jnp.int32)
         WC = (jnp.where(iota_c == (ic1 - 1)[..., None], cw1[..., None],
                         0.0)
               + jnp.where(iota_c == ic1[..., None], cw2[..., None],
                           0.0)).astype(dtype)
-        k = jnp.einsum("blc,blcg->blg", WC, K_c)
+        k = jnp.einsum("blc,blcg->blg", WC, K_c,
+                       precision=jax.lax.Precision.HIGHEST)
         mult = simple_multiplier * gas_vmr[gname]
         od = od + mult[..., None] * k
 
@@ -247,8 +245,7 @@ def calc_planck(tables: Dict, meta: Dict, temperature):
     temperature (...,) → (..., ng).
 
     The 2-corner linear interpolation runs as a weighted one-hot
-    matmul over the (nplanck, ng) table — same MXU trick as
-    calc_optical_depth (TPU gathers of short rows are ~20x slower)."""
+    matmul over the (nplanck, ng) table, as in calc_optical_depth."""
     pf = jnp.asarray(tables["planck_function"])      # (nT, ng)
     t1 = meta["temperature1_planck"]
     dt = meta["d_temperature_planck"]

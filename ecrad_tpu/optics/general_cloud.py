@@ -113,9 +113,8 @@ def _add_optical_properties(lut, water_path, effective_radius,
     """radiation_general_cloud_optics_data.F90 add_optical_properties.
 
     The 2-corner effective-radius interpolation of all three LUTs runs
-    as ONE weighted one-hot matmul over the stacked (nre, 3*nspec)
-    table — TPU row-gathers of short rows are ~20x slower than the
-    equivalent MXU contraction (see optics/ecckd.py)."""
+    as ONE weighted one-hot matmul (HIGHEST precision, so exact) over
+    the stacked (nre, 3*nspec) table."""
     import jax
 
     nre = lut["n_effective_radius"]

@@ -7,11 +7,13 @@ reordering and final flip cancel out here).
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import jax.numpy as jnp
 import numpy as np
 
+from ecrad_tpu import backend
 from ecrad_tpu.optics import rrtmg_data, rrtmg_lw, rrtmg_sw
 from ecrad_tpu.optics.rrtmg_prepare import prepare_columns
 from ecrad_tpu import profiling
@@ -48,6 +50,23 @@ def setup_tables():
     return tables
 
 
+def install_interp_windows(tables, thermodynamics) -> None:
+    """Store level windows for the one-hot interpolation in the RRTMG
+    gas tables (part of the traced closure, so a step traced with them
+    cannot silently be fed others; out-of-window inputs are NaN-poisoned
+    by the interpolation guard), probed from this input grid.  Does
+    nothing where the gather form is chosen, where there are no RRTMG
+    tables, or with ECRAD_TPU_NO_WINDOWS=1."""
+    if (backend.choices().interp != "onehot"
+            or "rrtmg" not in (tables.gas or {})
+            or os.environ.get("ECRAD_TPU_NO_WINDOWS", "0")
+            not in ("", "0")):
+        return
+    tables.gas["rrtmg"]["windows"] = compute_interp_windows(
+        tables.gas["rrtmg"], thermodynamics.pressure_hl,
+        thermodynamics.temperature_hl)
+
+
 def compute_interp_windows(tables, pressure_hl, temperature_hl) -> dict:
     """Probe the real inputs for the per-level (jp, jt)-plane spans and
     derive exact level-window widths for every major-species
@@ -60,7 +79,7 @@ def compute_interp_windows(tables, pressure_hl, temperature_hl) -> dict:
     Pure function of pressure/temperature (rrtm_setcoef_140gp.F90 index
     formulas); one tiny jitted reduce, fetched to host ints.
 
-    Install with ``rrtmg_interp.set_level_windows`` BEFORE tracing the
+    Install with :func:`install_interp_windows` BEFORE tracing the
     radiation step."""
     import jax
 

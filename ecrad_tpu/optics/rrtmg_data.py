@@ -6,7 +6,7 @@ tools/extract_rrtmg.py into ``ecrad_tpu/data/rrtmg.npz`` (g-point-reduced:
 operational RRTMG-IFS configuration, ifsrrtm/yoerrtm.F90:58,
 ifsrrtm/yoesrtm.F90:41).
 
-At setup the tables become one flat dict of jnp arrays (an HBM-resident
+At setup the tables become one flat dict of jnp arrays (a device-resident
 pytree replicated across the device mesh); band structure metadata lives in
 `RRTMGMeta` (static, hashable).
 """

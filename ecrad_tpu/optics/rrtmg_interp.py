@@ -4,23 +4,20 @@ The reference accesses flattened ABSA/ABSB tables with precomputed flat
 indices (e.g. ifsrrtm/rrtm_taumol1.F90:200-280, rrtm_taumol3.F90:95-310).
 Here tables are reshaped to explicit (jp, jt, js, g) axes at load time.
 
-TPU access pattern: the TPU vector unit has no hardware gather, so
-row-gathers with per-(column,level) indices lower to slow scalar loops.
-Every interpolation is therefore expressed through :func:`weighted_take`
-— a sum of weighted table rows — which on TPU becomes a fused one-hot
-matrix product on the MXU ((ncol*nlev, nrows) @ (nrows, ng), the one-hot
-built in a single fused elementwise pass) and on CPU stays a plain
-gather.
+Every interpolation is expressed through :func:`weighted_take` — a sum
+of weighted table rows — which is either a plain gather (exact; the
+default on every backend) or a one-hot matrix product at HIGHEST
+precision ((ncol*nlev, nrows) @ (nrows, ng), the one-hot built in one
+fused elementwise pass), as ``backend.choices().interp`` says.
 
 Two batch layouts (``layout`` argument):
   * ``"cln"`` (default): index arrays (ncol, nlev), results
     (ncol, nlev, ng) — the classic column-major analysis layout used by
     the CPU/golden path and the non-fused solvers.
   * ``"knl"``: index arrays (nlev, ncol), results (nlev, ng, ncol) —
-    the fused Pallas solver *kernel layout* (columns on TPU lanes).
-    Producing gas optics directly in this layout removes the 3-5 ms/
-     157 MB relayout copies between gas optics and the solver sweeps
-    that dominated the round-3 profile.
+    the fused solver *kernel layout* (columns contiguous).  Producing
+    gas optics directly in this layout removes the (ncol*nlev*ng)
+    relayout copies between gas optics and the solver sweeps.
 """
 
 from __future__ import annotations
@@ -28,6 +25,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ecrad_tpu import backend
 
 ONEMINUS = 1.0 - 1.0e-6
 
@@ -62,16 +61,15 @@ def reshape_minor2(kam: np.ndarray) -> np.ndarray:
 # --- level-windowed interpolation ------------------------------------------
 #
 # The dominant cost of the one-hot formulation is building the (N, nrows)
-# weight matrix on the VPU: N*nrows*npairs elementwise ops regardless of
-# how narrow the output is.  But the row indices are driven by the
+# weight matrix: N*nrows*npairs elementwise ops regardless of how narrow
+# the output is.  But the row indices are driven by the
 # pressure index jp, which at any given model LEVEL spans only a handful
 # of values across columns (pressure varies across columns far less than
 # across levels).  With a per-level row offset ``off[l]`` (traced, from
 # the data) and a static window width W, the contraction becomes a
 # level-batched matmul against a (nlev, W, ng) windowed table — cutting
-# both the weight-matrix build and the MXU contraction by nrows/W
-# (measured 2.5x for the 585-row lower tables, >10x for the 1175-row
-# upper tables whose jp span per level is tiny).
+# both the weight-matrix build and the contraction by nrows/W (the
+# 1175-row upper tables have a jp span of a few rows per level).
 #
 # W must be static.  The driver computes the exact per-pair-set spans
 # from the real inputs with :func:`pair_span` (a tiny jitted probe using
@@ -188,7 +186,7 @@ def _weighted_take_windowed(table, pairs, width, ls=0, le=None,
           == jnp.arange(nrows, dtype=off.dtype)).astype(table.dtype)
     twin = jnp.dot(oh.reshape(-1, nrows), table,
                    preferred_element_type=table.dtype,
-                   precision=jax.lax.Precision.HIGH)
+                   precision=jax.lax.Precision.HIGHEST)
     twin = twin.reshape(offsets.shape + (table.shape[-1],))
 
     iota = jnp.arange(width, dtype=jnp.int32)
@@ -205,7 +203,7 @@ def _weighted_take_windowed(table, pairs, width, ls=0, le=None,
         out = jax.lax.dot_general(
             twin, A, dimension_numbers=(((1,), (1,)), ((0,), (0,))),
             preferred_element_type=table.dtype,
-            precision=jax.lax.Precision.HIGH)        # (nlev, ng, ncol)
+            precision=jax.lax.Precision.HIGHEST)        # (nlev, ng, ncol)
         out = out * poison
         if ls > 0 or le < nlev_full:
             out = jnp.pad(out, ((ls, nlev_full - le), (0, 0), (0, 0)))
@@ -222,7 +220,7 @@ def _weighted_take_windowed(table, pairs, width, ls=0, le=None,
     out = jax.lax.dot_general(
         A, twin, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
         preferred_element_type=table.dtype,
-        precision=jax.lax.Precision.HIGH)            # (nlev, ncol, ng)
+        precision=jax.lax.Precision.HIGHEST)            # (nlev, ncol, ng)
     out = out * poison
     if ls > 0 or le < nlev_full:
         out = jnp.pad(out, ((ls, nlev_full - le), (0, 0), (0, 0)))
@@ -238,20 +236,16 @@ def weighted_take(table, pairs, key=None, layout="cln", windows=None):
     (nlev, ncol) [knl]; weight: same shape or None (== 1).
     Returns (ncol, nlev, ng) [cln] or (nlev, ng, ncol) [knl].
 
-    On TPU this builds a combined weight matrix A in one fused
-    elementwise pass and contracts it with the table on the MXU —
-    ~40x faster than the gather lowering (no vector gather on TPU).  On
-    CPU the gather path is faster and keeps f64 golden validation exact.
+    ``backend.choices().interp`` picks a gather or a one-hot matrix
+    product (at HIGHEST precision, so selection stays exact).
 
-    ``windows``: {key: width} level-window dict (from the tables dict);
-    falls back to the process-global set_level_windows state.
+    ``windows``: {key: width} level-window dict (from the tables dict)
+    for the one-hot form; falls back to the process-global
+    set_level_windows state.
     """
-    import os
     table = jnp.asarray(table)   # canonical dtype (f32 unless x64 on)
     nrows = table.shape[0]
-    if (jax.default_backend() == "cpu"
-            and os.environ.get("ECRAD_TPU_FORCE_ONEHOT", "0")
-            in ("", "0")):
+    if backend.choices().interp == "gather":
         out = None
         for idx, w in pairs:
             t = jnp.take(table, idx, axis=0)
@@ -283,7 +277,7 @@ def weighted_take(table, pairs, key=None, layout="cln", windows=None):
         out = jax.lax.dot_general(
             tbat, A, dimension_numbers=(((1,), (1,)), ((0,), (0,))),
             preferred_element_type=table.dtype,
-            precision=jax.lax.Precision.HIGH)
+            precision=jax.lax.Precision.HIGHEST)
         return out
     iota = jnp.arange(nrows, dtype=jnp.int32)
     A = None
@@ -292,14 +286,9 @@ def weighted_take(table, pairs, key=None, layout="cln", windows=None):
         term = oh if w is None else w[..., None] * oh
         A = term if A is None else A + term
     lead = A.shape[:-1]
-    # HIGH precision (bf16x3, 3 MXU passes): represents f32 operands
-    # exactly as bf16 triples, so pure 0/1 selections stay exact and
-    # weighted sums carry ~2^-21 relative error — indistinguishable from
-    # f32 FMA accumulation here, and measured 3.4x faster than HIGHEST
-    # (6-pass) on the narrow per-band products (tools/bench_gather.py)
     out = jnp.dot(A.reshape(-1, nrows), table,
                   preferred_element_type=table.dtype,
-                  precision=jax.lax.Precision.HIGH)
+                  precision=jax.lax.Precision.HIGHEST)
     return out.reshape(lead + (table.shape[-1],))
 
 
@@ -313,14 +302,12 @@ def take_bands(x, band_from_g, layout="cln"):
     cln: x (..., nband) → (..., ng); knl: x (nlev, nband, ncol) →
     (nlev, ng, ncol).  Static indices band_from_g (ng,).
 
-    On TPU even a *static* minor-axis gather lowers to a slow custom
-    fusion (~2 ms per instance at ncol=2048); as a constant 0/1 matrix
-    product it rides the MXU and fuses with neighbours.  Exact: one-hot
-    columns select single entries (0/1 and the selected value are
-    representable in every MXU pass).  CPU keeps the gather (exact f64
-    golden path)."""
+    A gather, or with ``backend.choices().interp == "onehot"`` a constant
+    0/1 matrix product at HIGHEST precision (exact: one-hot columns
+    select single entries)."""
+    onehot = backend.choices().interp == "onehot"
     if layout == "knl":
-        if jax.default_backend() == "cpu":
+        if not onehot:
             return jnp.take(x, band_from_g, axis=1)
         nlev, nband = x.shape[0], x.shape[1]
         bfg = jnp.asarray(band_from_g)
@@ -330,31 +317,28 @@ def take_bands(x, band_from_g, layout="cln"):
         return jax.lax.dot_general(
             mbat, x, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
             preferred_element_type=x.dtype,
-            precision=jax.lax.Precision.HIGH)         # (nlev, ng, ncol)
-    if jax.default_backend() == "cpu":
+            precision=jax.lax.Precision.HIGHEST)      # (nlev, ng, ncol)
+    if not onehot:
         return jnp.take(x, band_from_g, axis=-1)
     nband = x.shape[-1]
     bfg = jnp.asarray(band_from_g)
     mat = (bfg[None, :] == jnp.arange(nband)[:, None]).astype(x.dtype)
-    # HIGH: 0/1 selectors are exact in any bf16-split scheme and the
-    # selected f32 value is reconstructed exactly from its bf16 triple
     out = jnp.dot(x.reshape(-1, nband), mat,
                   preferred_element_type=x.dtype,
-                  precision=jax.lax.Precision.HIGH)
+                  precision=jax.lax.Precision.HIGHEST)
     return out.reshape(x.shape[:-1] + (bfg.shape[0],))
 
 
 # --- band batching ---------------------------------------------------------
 #
-# The one-hot MXU formulation of weighted_take costs N * nrows * ng MACs
-# regardless of how many (idx, weight) pairs share the product, and the
-# MXU wants >=128 output lanes.  Per-band calls produce 2-16-lane outputs
-# (measured 5.3 TFLOP/s at ncol=2048).  But the *indices and weights* of
-# most interpolations are band-independent (jp/jt/fac from pressure and
-# temperature only; indself/indfor/indminor likewise; the eta index js
-# only depends on the gas-pair ratio).  Grouping the tables of all bands
-# that share an index set along the g axis turns ~100 narrow matmuls
-# into ~10 wide ones with identical results.
+# The one-hot formulation of weighted_take costs N * nrows * ng MACs
+# regardless of how many (idx, weight) pairs share the product, and
+# per-band calls produce 2-16-wide outputs.  But the *indices and
+# weights* of most interpolations are band-independent (jp/jt/fac from
+# pressure and temperature only; indself/indfor/indminor likewise; the
+# eta index js only depends on the gas-pair ratio).  Grouping the tables
+# of all bands that share an index set along the g axis turns ~100
+# narrow lookups into ~10 wide ones with identical results.
 
 class BatchedTake:
     """Accumulate (key, table(nrows, ngb)) entries that share one
@@ -506,7 +490,7 @@ def major_2(table, jp, jt, jt1, fac00, fac01, fac10, fac11,
     bands that don't (e.g. taumol9/12-like linear eta) pass False.
     Returns tau_major_total = speccomb-weighted sum of both jp planes,
     assembled as ONE weighted_take over 12 (or 8) weighted rows so the
-    TPU path is a single one-hot matmul (level-windowed when a window is
+    one-hot path is a single matmul (level-windowed when a window is
     installed for ``key``).
     """
     njp, njs = table.shape[0], table.shape[2]

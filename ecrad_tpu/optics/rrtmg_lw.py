@@ -2,8 +2,8 @@
 
 Re-implementation of the 16 band kernels ifsrrtm/rrtm_taumol1.F90 …
 rrtm_taumol16.F90 as vectorized JAX gathers over (ncol, nlev), with the
-per-band g-points concatenated to the full 140-point spectral axis (TPU
-lanes).  The reference's per-layer IF(JLAY<=LAYTROP) split becomes a masked
+per-band g-points concatenated to the full 140-point spectral axis.
+The reference's per-layer IF(JLAY<=LAYTROP) split becomes a masked
 select between the lower- and upper-atmosphere formulations.
 
 Band structure (rrtm_taumol*.F90 headers):
@@ -33,7 +33,7 @@ def build_lw_tables(raw: dict) -> dict:
     """Reshape extracted tables into gather-friendly layouts.
 
     raw: dict from rrtmg_data.load_tables(). Returns a flat dict of numpy
-    arrays; converted to jnp on first jit trace (HBM-resident thereafter).
+    arrays; converted to jnp on first jit trace (device-resident thereafter).
     """
     t = {}
     for b in range(1, 17):

@@ -5,7 +5,7 @@ ifsrrtm/rrtm_setcoef_140gp.F90 / ifsrrtm/srtm_setcoef.F90 (pressure/
 temperature interpolation indices, continuum factors, binary-species
 reference ratios).
 
-TPU-first differences from the reference:
+Differences from the reference:
   * No bottom-up reordering: everything stays in ecRad's top-down level
     order. The reference's LAYTROP layer counter becomes a boolean mask
     (``tropo``: log(p_hPa) > 4.56), which is equivalent because pressure is
@@ -155,9 +155,7 @@ def prepare_columns(pressure_hl, pressure_fl, temperature_fl,
     # One fused row-gather for every per-jp reference quantity: the
     # (59,)-row tables preflog/tref and the 7 chi_mls profiles are packed
     # into a (59, 9) matrix and looked up at jp and jp+1 in two
-    # weighted_take calls (single one-hot MXU products on TPU — the
-    # per-table jnp indexing this replaces lowered to 12 serial gathers,
-    # ~19 ms/step at ncol=2048).
+    # weighted_take calls instead of 12 separate per-table lookups.
     from ecrad_tpu.optics.rrtmg_interp import weighted_take
     refmat = np.concatenate([
         np.asarray(preflog, dtype)[:, None],

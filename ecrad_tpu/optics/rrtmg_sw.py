@@ -181,8 +181,7 @@ class _SwBand:
         jp0 = jnp.clip(c.jp - jp_offset, 0, njp - 1)
         jp1 = jnp.clip(c.jp + 1 - jp_offset, 0, njp - 1)
 
-        # 8 weighted rows assembled into one weighted_take (single
-        # one-hot MXU matmul on TPU)
+        # 8 weighted rows assembled into one weighted_take
         pairs = []
         for djs, fsw in ((0, speccomb * (1.0 - fs)), (1, speccomb * fs)):
             for jp_s, jt_s, fac in ((jp0, c.jt, c.fac00),

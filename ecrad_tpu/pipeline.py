@@ -1,15 +1,15 @@
 """Column-blocked and multi-device execution of the radiation scheme.
 
-This is the TPU-native equivalent of the reference's two batching layers:
+This is the equivalent of the reference's two batching layers:
 
 * **Column blocking** — the reference driver splits the domain into
   ``nblocksize`` chunks and loops (driver/ecrad_driver.F90:339-384,
   driver/ifs_blocking.F90:328-331, NPROMA pattern).  Here
   :func:`radiation_blocked` reshapes the column axis into
   ``(nblocks, block_size)`` and runs a ``lax.map`` over blocks inside one
-  jitted program, bounding the HBM working set to one block regardless of
-  total ncol.
-* **Column data parallelism across chips** — the reference uses OpenMP
+  jitted program, bounding the device working set to one block
+  regardless of total ncol.
+* **Column data parallelism across devices** — the reference uses OpenMP
   threads over blocks; here :func:`radiation_sharded` shard_maps the
   column axis over a 1-D ``jax.sharding.Mesh`` (pure DP — columns are
   independent, SURVEY §2.5 P1), with the LUT tables replicated (P4).
@@ -121,7 +121,7 @@ def radiation_blocked(config: Config, tables: Tables, *, solar_irradiance,
                       **inputs) -> Flux:
     """NPROMA-style column blocking: run radiation_step over column
     blocks sequentially (lax.map) inside one compiled program, bounding
-    HBM temporaries to one block (driver/ecrad_driver.F90:339-384)."""
+    device temporaries to one block (driver/ecrad_driver.F90:339-384)."""
     ncol = inputs["pressure_hl"].shape[0]
     if block_size >= ncol:
         return radiation_step(config, tables,
@@ -143,6 +143,33 @@ def radiation_blocked(config: Config, tables: Tables, *, solar_irradiance,
 
     flux = jax.lax.map(one_block, tree)
     return _unblock(flux, ncol)
+
+
+# Peak device bytes of one radiation step per column, per level, per
+# g-point (SW + LW) and per byte of the float type: the flagship's
+# compiled.memory_analysis() on an H100 (see CHANGES.md).
+STEP_BYTES_PER_COLUMN_LEVEL_G = 12.0
+
+
+# Share of the device's memory limit a step may take (the rest holds the
+# inputs, outputs and the tables).
+BLOCK_MEMORY_FILL = 0.7
+
+
+def block_size_for(config: Config, ncol: int, nlev: int, itemsize: int,
+                   device=None) -> int:
+    """Largest power-of-two column block (at most ncol) whose step fits
+    BLOCK_MEMORY_FILL of the device's memory, from
+    STEP_BYTES_PER_COLUMN_LEVEL_G."""
+    device = device or jax.devices()[0]
+    stats = device.memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        raise ValueError(f"{device} reports no memory limit to size a "
+                         "column block from")
+    per_col = (STEP_BYTES_PER_COLUMN_LEVEL_G * nlev * itemsize
+               * (config.n_g_sw + config.n_g_lw))
+    fit = max(1, int(BLOCK_MEMORY_FILL * stats["bytes_limit"] // per_col))
+    return 1 << (min(fit, ncol).bit_length() - 1)
 
 
 def make_mesh(n_devices: Optional[int] = None) -> jax.sharding.Mesh:
@@ -179,10 +206,6 @@ def radiation_sharded(config: Config, tables: Tables,
     the analog of the reference's rank-0-read + MPI broadcast,
     utilities/easy_netcdf_read_mpi.F90)."""
     from jax.sharding import PartitionSpec as P
-    shard_map = getattr(jax, "shard_map", None)
-    if shard_map is None:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     n_dev = mesh.devices.size
     ncol = inputs["pressure_hl"].shape[0]
     padded = -(-ncol // n_dev) * n_dev
@@ -208,8 +231,9 @@ def radiation_sharded(config: Config, tables: Tables,
     # jax.jit around shard_map is essential: an eager shard_map call
     # dispatches every primitive of the body separately across devices
     # (minutes for this program) instead of compiling one SPMD module.
-    fn = jax.jit(shard_map(local_step, mesh=mesh, in_specs=(P("columns"),),
-                           out_specs=P("columns"), check_vma=False))
+    fn = jax.jit(jax.shard_map(local_step, mesh=mesh,
+                               in_specs=(P("columns"),),
+                               out_specs=P("columns"), check_vma=False))
     flux = fn(tree)
     return jax.tree_util.tree_map(
         lambda x: None if x is None else x[:ncol], flux,

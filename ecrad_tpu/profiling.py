@@ -6,7 +6,7 @@ against ECMWF fiat and activated by the env var ``DR_HOOK=1``, prints a
 call-tree wall-clock profile at exit (drhook/yomhook_dummy.F90:14-39;
 activation protocol test/ifs/Makefile:175-192).
 
-TPU equivalent, two layers:
+Equivalent here, two layers:
 
 * ``hook(name)`` — host-side span: wall-clock accumulation per name +
   a ``jax.profiler.TraceAnnotation`` so spans appear on the xprof/

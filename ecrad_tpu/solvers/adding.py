@@ -7,187 +7,35 @@ calc_fluxes_no_scattering_lw).
 Level axis convention: index 0 = top of atmosphere. Arrays are
 ``(ncol, nlev, ng)``; per-column scalars broadcast ``(ncol, 1)``.
 
-Two implementations of the vertical recurrences:
+Two implementations of the vertical recurrences (chosen by
+``backend.choices().sweeps``):
 
 * ``lax.scan`` — the direct sequential form (137 steps, each a tiny
-  ``(ncol, ng)`` elementwise op).  Used on CPU where golden validation
-  runs and scan-step overhead is negligible.
-* ``associative_scan`` (parallel prefix, default on accelerators) —
+  ``(ncol, ng)`` elementwise op), in the reference's operation order.
+* ``associative_scan`` (parallel prefix, ``ECRAD_TPU_ADDING=assoc``) —
   the adding recurrences are *Möbius/affine* in the carried state: the
   up-sweep carry (albedo, source) transforms per layer as a linear
   fractional map, i.e. a projective 3x3 matrix with sparsity pattern
   [[a,0,b],[p,t,q],[c,0,d]] acting on (albedo, source, 1), and matrix
   composition is associative; the down-sweeps are affine ``f' = Af+B``.
   ``jax.lax.associative_scan`` evaluates all 137 levels in ~log2(137)=8
-  full-tensor combines — removing the sequential-loop latency that
-  dominates the solver on TPU.  Each combine renormalizes the
-  projective matrix by its (stays-positive) denominator d = 1 - r2*r1
-  to keep entries O(1) in f32.
+  full-tensor combines instead of a sequential loop.  Each combine
+  renormalizes the projective matrix by its (stays-positive)
+  denominator d = 1 - r2*r1 to keep entries O(1) in f32.
 """
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
 
-
-def _mode() -> str:
-    """Vertical-recurrence implementation: 'pallas' (fused TPU sweep
-    kernels, the accelerator default), 'assoc' (parallel prefix) or
-    'scan' (sequential lax.scan — matches the reference's operation
-    order; the CPU/golden default).
-
-    Measured on TPU v5e at ncol=2048 (flagship McICA step): assoc
-    347 ms, scan 202 ms, pallas sweeps ~an order of magnitude below
-    scan's adding share — the associative scan's ~25x memory
-    amplification loses to plain streaming on this problem shape."""
-    v = os.environ.get("ECRAD_TPU_ADDING", "auto").lower()
-    if v in ("pallas", "assoc", "scan"):
-        return v
-    # backwards-compatible override from round 2
-    legacy = os.environ.get("ECRAD_TPU_ASSOC_SCAN", "").lower()
-    if legacy in ("1", "true", "on", "yes"):
-        return "assoc"
-    if legacy in ("0", "false", "off", "no"):
-        return "scan"
-    # default: fused Pallas sweeps on accelerators (validated on-device
-    # vs the scan path: all flux fields agree to ~2e-7 rel at f32);
-    # sequential scan on CPU (reference operation order for f64 goldens)
-    return "scan" if jax.default_backend() == "cpu" else "pallas"
+from ecrad_tpu import backend
 
 
 def _assoc_enabled() -> bool:
-    return _mode() == "assoc"
-
-
-def _use_pallas(*shapes) -> bool:
-    """Pallas sweeps handle any (ncol, nlev, ng) f32/f64 problem; columns
-    are padded to the lane tile inside the wrappers."""
-    return _mode() == "pallas"
-
-
-def _pad_cols(x, ncolp):
-    """Pad the trailing (column) axis with zeros to ncolp."""
-    pad = ncolp - x.shape[-1]
-    if pad == 0:
-        return x
-    widths = [(0, 0)] * (x.ndim - 1) + [(0, pad)]
-    return jnp.pad(x, widths)
-
-
-def _kernel_cols(ncol):
-    """Padded column count: lane-tile multiples (128), and a multiple of
-    the 512-column block when larger."""
-    if ncol <= 512:
-        return -(-ncol // 128) * 128
-    return -(-ncol // 512) * 512
-
-
-def _to_kern(x, ncolp):
-    """(ncol, nlev, ng) → (nlev, ng, ncolp).  XLA stores the solver
-    arrays with ncol minor already, so this is a cheap relayout."""
-    return _pad_cols(jnp.transpose(x, (1, 2, 0)), ncolp)
-
-
-def _to_kern_surf(x, ncolp):
-    """(ncol, ng) → (ng, ncolp)."""
-    return _pad_cols(x.T, ncolp)
-
-
-def _adding_lw_reduced_pallas(reflectance, transmittance, source_up,
-                              source_dn, emission_surf, albedo_surf,
-                              spec_matrix) -> "LwAdding":
-    from ecrad_tpu.solvers import pallas_adding
-
-    ncol, nlev, ng = reflectance.shape
-    ncolp = _kernel_cols(ncol)
-    albedo_surf = jnp.broadcast_to(albedo_surf, emission_surf.shape)
-    dn_bb, up_bb, src_top, fdn_surf = pallas_adding.scat_sweeps(
-        _to_kern(reflectance, ncolp), _to_kern(transmittance, ncolp),
-        _to_kern(source_up, ncolp), _to_kern(source_dn, ncolp),
-        _to_kern_surf(albedo_surf, ncolp),
-        _to_kern_surf(emission_surf, ncolp))
-    src_top = src_top[:, :ncol].T                  # (ncol, ng)
-    fdn_surf = fdn_surf[:, :ncol].T
-    dn_bb = dn_bb[:, :ncol]                        # (nlev, ncol)
-    up_bb = up_bb[:, :ncol]
-    fup_surf_g = albedo_surf * fdn_surf + emission_surf
-    up_toa_bb = jnp.sum(src_top, axis=-1)
-    return LwAdding(
-        up=_stack_top(up_toa_bb, up_bb),
-        dn=_stack_top(jnp.zeros_like(up_toa_bb), dn_bb),
-        up_toa_g=src_top, dn_surf_g=fdn_surf, up_surf_g=fup_surf_g)
-
-
-def _lw_no_scattering_reduced_pallas(transmittance, source_up, source_dn,
-                                     emission_surf, albedo_surf,
-                                     spec_matrix) -> "LwAdding":
-    from ecrad_tpu.solvers import pallas_adding
-
-    ncol, nlev, ng = transmittance.shape
-    ncolp = _kernel_cols(ncol)
-    albedo_surf = jnp.broadcast_to(albedo_surf, emission_surf.shape)
-    dn_bb, fdn_surf, up_bb, fup_toa, fup_surf = \
-        pallas_adding.lw_noscat_sweeps(
-            _to_kern(transmittance, ncolp), _to_kern(source_up, ncolp),
-            _to_kern(source_dn, ncolp),
-            _to_kern_surf(emission_surf, ncolp),
-            _to_kern_surf(albedo_surf, ncolp))
-    fdn_surf = fdn_surf[:, :ncol].T
-    fup_toa = fup_toa[:, :ncol].T
-    fup_surf = fup_surf[:, :ncol].T
-    dn_bb = dn_bb[:, :ncol]
-    up_bb = up_bb[:, :ncol]
-    surf_up_bb = jnp.sum(fup_surf, axis=-1)
-    return LwAdding(
-        up=_stack_bot(up_bb, surf_up_bb),
-        dn=_stack_top(jnp.zeros_like(surf_up_bb), dn_bb),
-        up_toa_g=fup_toa, dn_surf_g=fdn_surf, up_surf_g=fup_surf)
-
-
-def _adding_sw_reduced_pallas(incoming_toa, albedo_surf_diffuse,
-                              albedo_surf_direct, cos_sza, reflectance,
-                              transmittance, ref_dir, trans_dir_diff,
-                              trans_dir_dir, spec_matrix) -> "SwAdding":
-    from ecrad_tpu.solvers import pallas_adding
-
-    ncol, nlev, ng = reflectance.shape
-    ncolp = _kernel_cols(ncol)
-    albedo_surf_diffuse = jnp.broadcast_to(albedo_surf_diffuse,
-                                           incoming_toa.shape)
-    alb_dir_mu0 = jnp.broadcast_to(albedo_surf_direct * cos_sza,
-                                   incoming_toa.shape)
-    dir_bb, dn_bb, up_bb, fdir_surf, fdn_surf, src_top = \
-        pallas_adding.sw_sweeps(
-            _to_kern(reflectance, ncolp), _to_kern(transmittance, ncolp),
-            _to_kern(ref_dir, ncolp), _to_kern(trans_dir_diff, ncolp),
-            _to_kern(trans_dir_dir, ncolp),
-            _to_kern_surf(incoming_toa, ncolp),
-            _to_kern_surf(albedo_surf_diffuse, ncolp),
-            _to_kern_surf(alb_dir_mu0, ncolp))
-    src_top = src_top[:, :ncol].T
-    fdir_surf = fdir_surf[:, :ncol].T
-    fdn_surf = fdn_surf[:, :ncol].T
-    dir_bb = dir_bb[:, :ncol]
-    dn_bb = dn_bb[:, :ncol]
-    up_bb = up_bb[:, :ncol]
-
-    mu0 = cos_sza
-    mu0_bb = mu0[..., 0] if mu0.ndim == 2 else mu0
-    up_toa_bb = jnp.sum(src_top, axis=-1)
-    dir_toa_bb = jnp.sum(incoming_toa, axis=-1)
-    zeros_bb = jnp.zeros_like(up_toa_bb)
-    return SwAdding(
-        up=_stack_top(up_toa_bb, up_bb),
-        dn_diffuse=_stack_top(zeros_bb, dn_bb),
-        dn_direct=_stack_top(dir_toa_bb, dir_bb) * mu0_bb[:, None],
-        up_toa_g=src_top,
-        dn_diffuse_surf_g=fdn_surf,
-        dn_direct_surf_g=fdir_surf * mu0,
-    )
+    return backend.choices().sweeps == "assoc"
 
 
 def _up_compose(m1, m2):
@@ -302,7 +150,8 @@ def _project(y, spec_matrix):
     bb = jnp.sum(y, axis=-1)
     if spec_matrix is None:
         return bb, None
-    return bb, y @ spec_matrix
+    return bb, jnp.matmul(y, spec_matrix,
+                          precision=jax.lax.Precision.HIGHEST)
 
 
 def _stack_top(top, levels):
@@ -322,7 +171,8 @@ def _project_levels(y, spec_matrix):
     bb = jnp.sum(y, axis=-1)
     if spec_matrix is None:
         return bb, None
-    return bb, y @ spec_matrix
+    return bb, jnp.matmul(y, spec_matrix,
+                          precision=jax.lax.Precision.HIGHEST)
 
 
 def _adding_sw_reduced_assoc(incoming_toa, albedo_surf_diffuse,
@@ -462,16 +312,11 @@ def adding_sw_reduced(incoming_toa, albedo_surf_diffuse, albedo_surf_direct,
     24-153) but each scan step emits only the g-sum (and an optional
     ``(ng, nspec)`` projection, e.g. a one-hot band matrix) instead of the
     full per-g flux profile — the reference computes broadband sums on the
-    fly for exactly this reason (radiation_mcica_sw.F90:185-222), and on
-    TPU it removes ~(nlev+1)*ng/1-sized HBM temporaries per output.
+    fly for exactly this reason (radiation_mcica_sw.F90:185-222), and
+    here it removes an (ncol, nlev+1, ng) device temporary per output.
     Boundary (surface/TOA) fluxes stay g-resolved for the spectral
     diagnostics.
     """
-    if spec_matrix is None and _use_pallas():
-        return _adding_sw_reduced_pallas(
-            incoming_toa, albedo_surf_diffuse, albedo_surf_direct,
-            cos_sza, reflectance, transmittance, ref_dir, trans_dir_diff,
-            trans_dir_dir, spec_matrix)
     if _assoc_enabled():
         return _adding_sw_reduced_assoc(
             incoming_toa, albedo_surf_diffuse, albedo_surf_direct,
@@ -559,10 +404,6 @@ def adding_lw_reduced(reflectance, transmittance, source_up, source_dn,
                       ) -> LwAdding:
     """LW adding (scattering) with on-the-fly spectral reduction
     (recurrences of radiation_adding_ica_lw.F90:32-134)."""
-    if spec_matrix is None and _use_pallas():
-        return _adding_lw_reduced_pallas(
-            reflectance, transmittance, source_up, source_dn,
-            emission_surf, albedo_surf, spec_matrix)
     if _assoc_enabled():
         return _adding_lw_reduced_assoc(
             reflectance, transmittance, source_up, source_dn,
@@ -620,10 +461,6 @@ def lw_no_scattering_reduced(transmittance, source_up, source_dn,
                              ) -> LwAdding:
     """No-scattering LW recurrences with on-the-fly spectral reduction
     (radiation_adding_ica_lw.F90:272-334)."""
-    if spec_matrix is None and _use_pallas():
-        return _lw_no_scattering_reduced_pallas(
-            transmittance, source_up, source_dn, emission_surf,
-            albedo_surf, spec_matrix)
     if _assoc_enabled():
         return _lw_no_scattering_reduced_assoc(
             transmittance, source_up, source_dn, emission_surf,

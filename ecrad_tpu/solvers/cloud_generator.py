@@ -1,4 +1,4 @@
-"""TPU-native McICA cloud generator (counter-based RNG, fully on device).
+"""On-device McICA cloud generator (counter-based RNG).
 
 Statistically equivalent to the reference generator but reproducible under
 any sharding: random fields come from JAX's counter-based threefry PRNG
@@ -231,12 +231,11 @@ def fit_pdf_cheb(pdf_tables, degree: int = 14):
     normal quantile z = ndtri(cdf) (host-side, at setup).
 
     The reference samples a (ncdf=1000, nfsd=81) inverse-CDF LUT
-    bilinearly (radiation_pdf_sampler.F90:59-105).  An element-wise
-    gather of ~1e8 random indices has no hardware path on the TPU VPU
-    (measured ~1.4 s per call — 80% of the whole step), while this fit
-    reduces sampling to erfinv + a Clenshaw recurrence (pure VPU math;
-    max relative error vs the LUT: 1.4e-3 gamma / 2.9e-5 lognormal,
-    far inside McICA sampling noise).  Coefficients are linearly
+    bilinearly (radiation_pdf_sampler.F90:59-105).  This fit reduces
+    sampling to ndtri + a Clenshaw recurrence, elementwise math with no
+    gather of the ~1e8 random indices (max relative error vs the LUT:
+    1.4e-3 gamma / 2.9e-5 lognormal, far inside McICA sampling
+    noise).  Coefficients are linearly
     interpolated in fsd, which commutes with the LUT's own fsd
     interpolation since the series is linear in its coefficients.
     """
@@ -279,7 +278,7 @@ def cheb_coeffs_for(fit, fsd, dtype):
 
 # Cephes ndtri coefficients (the same rational approximations as
 # scipy/jax.scipy.special.ndtri), kept as Python floats so the Horner
-# evaluation lowers into Pallas kernels without array constants.
+# evaluation is unrolled elementwise math with no array constants.
 _NDTRI_P0 = (-5.99633501014107895267e1, 9.80010754185999661536e1,
              -5.66762857469070293439e1, 1.39312609387279679503e1,
              -1.23916583867381258016e0)
@@ -323,8 +322,8 @@ def _p1evl(x, coeffs):
 
 def ndtri(p):
     """Inverse normal CDF — cephes rational approximations with
-    literal coefficients (Pallas-kernel safe; values match
-    jax.scipy.special.ndtri to roundoff)."""
+    literal coefficients (values match jax.scipy.special.ndtri to
+    roundoff)."""
     s2pi = 2.50662827463100050242
     exp_m2 = 0.13533528323661269189
 
@@ -356,9 +355,8 @@ def ndtri(p):
 
 
 def cheb_eval(fit, coeff_at, ncoef, cdf):
-    """exp(cheb(ndtri(cdf))) — the PDF sample evaluation, shared by the
-    jnp path and the Pallas generator kernel (local cephes ndtri with
-    literal coefficients, so it traces into Mosaic).
+    """exp(cheb(ndtri(cdf))) — the PDF sample evaluation, shared by both
+    od_scaling layouts.
 
     coeff_at(k): coefficient k broadcastable against cdf."""
     eps = 1e-7
@@ -375,7 +373,7 @@ def cheb_eval(fit, coeff_at, ncoef, cdf):
 
 
 def sample_pdf_cheb(fit, fsd, cdf):
-    """TPU-fast PDF sampling: od_scaling = exp(cheb(z)) with coefficients
+    """Gather-free PDF sampling: od_scaling = exp(cheb(z)) with coefficients
     interpolated in fsd.  fsd (..., 1) broadcasting against cdf (..., ng);
     fsd must vary only over the leading (col, lev) axes."""
     c = cheb_coeffs_for(fit, fsd[..., 0], cdf.dtype)    # (..., deg+1)
@@ -421,9 +419,9 @@ def cloud_generator_device(config: Config, pdf_tables, iseed, frac,
       overlap_param: (ncol, nlev-1).
       fractional_std: (ncol, nlev).
       layout: "cln" → od_scaling (ncol, nlev, ng); "knl" → od_scaling
-        (nlev, ng, ncol), the fused-solver kernel layout (the Pallas
-        level-scan already runs in that layout, so this skips the two
-        big relayout copies; identical random streams either way).
+        (nlev, ng, ncol), the fused-solver kernel layout (the level scan
+        runs in that layout, so no big relayout copy is made; identical
+        random streams either way).
     Returns (od_scaling, total_cloud_cover (ncol,)).
     """
     ncol, nlev = frac.shape
@@ -448,13 +446,14 @@ def cloud_generator_device(config: Config, pdf_tables, iseed, frac,
     keys = jax.vmap(lambda s: jax.random.key(s))(
         jnp.asarray(iseed, jnp.uint32))
 
+    # Draws are float32 in every precision, so a float64 run samples the
+    # same clouds as a float32 run with the same seeds.
     def draw(key):
         k1, k2, k3, k4 = jax.random.split(key, 4)
-        trig = jax.random.uniform(k1, (ng,), frac.dtype)
-        rc = jax.random.uniform(k2, (nlev, ng), frac.dtype)
-        ri = jax.random.uniform(k3, (nlev, ng), frac.dtype)
-        ri2 = jax.random.uniform(k4, (nlev, ng), frac.dtype)
-        return trig, rc, ri, ri2
+        u = lambda k, shape: jax.random.uniform(
+            k, shape, jnp.float32).astype(frac.dtype)
+        return (u(k1, (ng,)), u(k2, (nlev, ng)), u(k3, (nlev, ng)),
+                u(k4, (nlev, ng)))
 
     is_any_cloud = frac >= config.cloud_fraction_threshold
 
@@ -462,17 +461,10 @@ def cloud_generator_device(config: Config, pdf_tables, iseed, frac,
                     >= config.cloud_fraction_threshold,
                     total_cloud_cover, 0.0)
 
-    from ecrad_tpu.solvers.adding import _mode as _adding_mode
-    if layout == "knl":
-        # kernel-layout output: the Pallas scan already runs in
-        # (nlev, ng, ncolp) — skip its final transpose and run the
-        # sampling epilogue in that layout directly
-        assert _adding_mode() == "pallas", \
-            "kernel-layout generator requires the Pallas scan path"
-        cdf = _generator_scan_pallas(
-            config, keys, draw, frac, cum, pair, overhang, op_inhom,
-            is_any_cloud, total_cloud_cover, exp_exp, ng,
-            out_layout="knl")                      # (nlev, ng, ncol)
+    cdf = _generator_scan_jnp(
+        keys, draw, frac, cum, pair, overhang, op_inhom, is_any_cloud,
+        total_cloud_cover, exp_exp, ng, layout)
+    if layout == "knl":                            # cdf (nlev, ng, ncol)
         fsd_k = fractional_std.T                   # (nlev, ncol)
         if pdf_tables.get("cheb_fit") is not None:
             fit = pdf_tables["cheb_fit"]
@@ -486,20 +478,6 @@ def cloud_generator_device(config: Config, pdf_tables, iseed, frac,
                                od_scaling, 0.0)
         od_scaling = jnp.where(tcc[None, None, :] > 0.0, od_scaling, 0.0)
         return od_scaling, tcc
-
-    if _adding_mode() == "pallas":
-        # Pallas scan kernel: identical per-column threefry streams
-        # (same draws, columns vmapped onto lanes), carries in VMEM.
-        # (In-kernel Chebyshev sampling was tried and reverted: no
-        # runtime gain over XLA's fused sampling epilogue, 4x Mosaic
-        # compile time.)
-        cdf = _generator_scan_pallas(
-            config, keys, draw, frac, cum, pair, overhang, op_inhom,
-            is_any_cloud, total_cloud_cover, exp_exp, ng)
-    else:
-        cdf = _generator_scan_jnp(
-            config, keys, draw, frac, cum, pair, overhang, op_inhom,
-            is_any_cloud, total_cloud_cover, exp_exp, ng)
 
     if pdf_tables.get("cheb_fit") is not None:
         sampled = sample_pdf_cheb(pdf_tables["cheb_fit"],
@@ -529,42 +507,27 @@ def _m1_fields(frac, cum, pair, overhang, op_inhom):
     return frac_m1, cum_m1, pair_m1, over_m1, op_m1
 
 
-def _generator_scan_pallas(config, keys, draw, frac, cum, pair, overhang,
-                           op_inhom, is_any_cloud, total_cloud_cover,
-                           exp_exp, ng, out_layout="cln"):
-    """Kernel-based level scan (solvers/pallas_generator.py): identical
-    recurrence and random streams as _generator_scan_jnp."""
-    from ecrad_tpu.solvers import pallas_generator
-    from ecrad_tpu.solvers.adding import _kernel_cols, _pad_cols
-
-    ncol, nlev = frac.shape
-    ncolp = _kernel_cols(ncol)
-    # columns vmapped onto the trailing (lane) axis — same draws
-    trigger, rc, ri, ri2 = jax.vmap(draw, out_axes=(1, 2, 2, 2))(keys)
-    trigger = trigger * total_cloud_cover[None, :]      # (ng, ncol)
-
-    frac_m1, cum_m1, pair_m1, over_m1, op_m1 = _m1_fields(
-        frac, cum, pair, overhang, op_inhom)
-    scalars = jnp.stack(
-        [is_any_cloud.astype(frac.dtype), frac, frac_m1, cum, cum_m1,
-         pair_m1, over_m1, op_m1], axis=0)              # (8, ncol, nlev)
-    scalars = _pad_cols(jnp.transpose(scalars, (2, 0, 1)), ncolp)
-
-    cdf = pallas_generator.generator_scan(
-        _pad_cols(rc, ncolp), _pad_cols(ri, ncolp),
-        _pad_cols(ri2, ncolp), scalars, _pad_cols(trigger, ncolp),
-        exp_exp)
-    if out_layout == "knl":
-        return cdf[:, :, :ncol]                         # (nlev, ng, ncol)
-    return jnp.transpose(cdf[:, :, :ncol], (2, 0, 1))   # (ncol, nlev, ng)
-
-
-def _generator_scan_jnp(config, keys, draw, frac, cum, pair, overhang,
-                        op_inhom, is_any_cloud, total_cloud_cover,
-                        exp_exp, ng):
-    ncol, nlev = frac.shape
-    trigger, rand_cloud, rand_inhom, rand_inhom2 = jax.vmap(draw)(keys)
-    trigger = trigger * total_cloud_cover[:, None]      # (ncol, ng)
+def _generator_scan_jnp(keys, draw, frac, cum, pair, overhang, op_inhom,
+                        is_any_cloud, total_cloud_cover, exp_exp, ng,
+                        layout="cln"):
+    """Level scan of the sampling recurrence.  The per-column states are
+    (ncol, ng) planes, or (ng, ncol) with layout="knl"; the draws are
+    the same numbers either way.  Returns the cdf samples
+    (ncol, nlev, ng), or (nlev, ng, ncol) with layout="knl"."""
+    knl = layout == "knl"
+    if knl:
+        trigger, rand_cloud, rand_inhom, rand_inhom2 = jax.vmap(
+            draw, out_axes=(1, 2, 2, 2))(keys)          # (nlev, ng, ncol)
+        trigger = trigger * total_cloud_cover[None, :]  # (ng, ncol)
+        col = lambda v: v[None, :]
+        lev_r = lambda a: a
+    else:
+        trigger, rand_cloud, rand_inhom, rand_inhom2 = jax.vmap(draw)(keys)
+        trigger = trigger * total_cloud_cover[:, None]  # (ncol, ng)
+        col = lambda v: v[:, None]
+        lev_r = lambda a: jnp.moveaxis(a, 1, 0)          # (nlev, ncol, ng)
+    ncol = frac.shape[0]
+    plane = (ng, ncol) if knl else (ncol, ng)
 
     frac_m1, cum_m1, pair_m1, over_m1, op_m1 = _m1_fields(
         frac, cum, pair, overhang, op_inhom)
@@ -574,35 +537,35 @@ def _generator_scan_jnp(config, keys, draw, frac, cum, pair, overhang,
     def scan_step(carry, x):
         found_cloud, is_cloud, ri_prev = carry
         any_c, f, f_m1, c, c_m1, p_m1, o_m1, opi_m1, rc, ri, ri2 = x
+        any_c = col(any_c)
         prev_cloud = is_cloud
-        first_cloud = (trigger <= c[:, None]) & (~found_cloud)
+        first_cloud = (trigger <= col(c)) & (~found_cloud)
         found_cloud = found_cloud | first_cloud
-        cond_prev = rc * f_m1[:, None] < (
-            f + f_m1 - p_m1)[:, None]
-        cond_new = rc * (c_m1 - f_m1)[:, None] < (
-            p_m1 - o_m1 - f_m1)[:, None]
+        cond_prev = rc * col(f_m1) < col(f + f_m1 - p_m1)
+        cond_new = rc * col(c_m1 - f_m1) < col(p_m1 - o_m1 - f_m1)
         is_cloud = first_cloud | (found_cloud
                                   & jnp.where(prev_cloud, cond_prev,
                                               cond_new))
-        is_cloud = is_cloud & any_c[:, None]
+        is_cloud = is_cloud & any_c
         if exp_exp:
             # Exp-Exp chains the inhomogeneity sample across clear gaps
             # (radiation_cloud_generator.F90:497-509: rand_inhom1
             # repetition runs over the whole itrigger:iend range,
             # regardless of cloudiness)
-            chain = jnp.where(ri2 < opi_m1[:, None], ri_prev, ri)
-            emit = jnp.where(is_cloud & any_c[:, None], chain, 0.0)
+            chain = jnp.where(ri2 < col(opi_m1), ri_prev, ri)
+            emit = jnp.where(is_cloud & any_c, chain, 0.0)
             return (found_cloud, is_cloud, chain), emit
-        ri_new = jnp.where((ri2 < opi_m1[:, None]) & prev_cloud,
-                           ri_prev, ri)
+        ri_new = jnp.where((ri2 < col(opi_m1)) & prev_cloud, ri_prev, ri)
         ri_new = jnp.where(is_cloud, ri_new, 0.0)
-        ri_new = jnp.where(any_c[:, None], ri_new, 0.0)
+        ri_new = jnp.where(any_c, ri_new, 0.0)
         return (found_cloud, is_cloud, ri_new), ri_new
 
-    init = (jnp.zeros((ncol, ng), bool), jnp.zeros((ncol, ng), bool),
-            jnp.zeros((ncol, ng), frac.dtype))
+    init = (jnp.zeros(plane, bool), jnp.zeros(plane, bool),
+            jnp.zeros(plane, frac.dtype))
     xs = (lev(is_any_cloud), lev(frac), lev(frac_m1), lev(cum),
           lev(cum_m1), lev(pair_m1), lev(over_m1), lev(op_m1),
-          lev(rand_cloud), lev(rand_inhom), lev(rand_inhom2))
+          lev_r(rand_cloud), lev_r(rand_inhom), lev_r(rand_inhom2))
     _, ri_levels = jax.lax.scan(scan_step, init, xs)
+    if knl:
+        return ri_levels                                # (nlev, ng, ncol)
     return jnp.moveaxis(ri_levels, 0, 1)                # (ncol, nlev, ng)

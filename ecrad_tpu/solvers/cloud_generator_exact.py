@@ -8,7 +8,7 @@ generator so that McICA golden-file comparisons are deterministic:
   * PDF sampling LUT (radiation/radiation_pdf_sampler.F90:59-105)
   * per-column generator (radiation/radiation_cloud_generator.F90:37-520)
 
-This path exists for validation and CPU use; the TPU production path uses a
+This path exists for validation and CPU use; the on-device path uses a
 counter-based (threefry) generator with the same statistics
 (ecrad_tpu/solvers/cloud_generator.py).  Both produce ``od_scaling`` and
 ``total_cloud_cover`` consumed by the McICA solvers.

@@ -4,7 +4,7 @@ Reference: radiation/radiation_matrix.F90 (mat_x_vec L64, mat_x_mat L145,
 solve_vec L737, solve_mat L769, expm L805, fast_expm_exchange_2 L914,
 fast_expm_exchange_3 L952).
 
-TPU formulation: matrices are (..., m, m) arrays with arbitrary leading
+Formulation: matrices are (..., m, m) arrays with arbitrary leading
 batch dims (typically (ncol, ng)); all ops are dense einsums / batched
 ``jnp.linalg.solve`` that XLA vectorizes over the batch.  The reference's
 per-matrix variable squaring count in ``expm`` becomes a fixed-trip masked
@@ -18,6 +18,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ecrad_tpu import backend
+
 # Pade-7 coefficients (radiation_matrix.F90:813-818)
 _THETA3 = 3.925724783138660
 _C = (17297280.0, 8648640.0, 1995840.0, 277200.0, 25200.0, 1512.0, 56.0,
@@ -27,10 +29,10 @@ _C = (17297280.0, 8648640.0, 1995840.0, 277200.0, 25200.0, 1512.0, 56.0,
 # squarings.
 _MAX_SQUARINGS = 60
 
-# Static squaring count for the accelerator path: a data-dependent
-# while_loop costs ~0.5-1 ms per iteration in TPU dispatch, which
-# multiplied by the 137-level layer loop made SPARTACUS ~200x slower
-# than its memory roofline.  A fixed masked chain of 13 squarings is
+# Static squaring count for the masked chain (backend.choices()
+# .expm_squarings == "masked"): no loop condition is read back per trip,
+# which a data-dependent while_loop needs inside the 137-level layer
+# loop.  A fixed masked chain of 13 squarings is
 # exact for 1-norms up to 2^13 * theta3 ~ 3.2e4 — above anything the
 # solvers produce (od capped by max_cloud_od, transfer rates capped by
 # max_3d_transfer_rate); norms beyond that fall back to a less-scaled
@@ -39,9 +41,15 @@ _MAX_SQUARINGS = 60
 _STATIC_SQUARINGS = 13
 
 
+def _mm(A, B):
+    """Batched matrix product at full f32 precision (never TF32)."""
+    return jnp.matmul(A, B, precision=jax.lax.Precision.HIGHEST)
+
+
 def mat_x_vec(A, b):
     """out_i = sum_j A[...,i,j] b[...,j]."""
-    return jnp.einsum("...ij,...j->...i", A, b)
+    return jnp.einsum("...ij,...j->...i", A, b,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def _lu_nopivot(A):
@@ -51,7 +59,8 @@ def _lu_nopivot(A):
 
     No pivoting matches the reference; the SPARTACUS matrices are
     strongly diagonally dominant.  Unrolling to elementwise FMAs keeps
-    the TPU path in true f32 (no bf16 dot_general) and compiles fast."""
+    it in true f32 (no reduced-precision dot_general) and compiles
+    fast."""
     m = A.shape[-1]
     LU = [[A[..., i, j] for j in range(m)] for i in range(m)]
     for k in range(m - 1):
@@ -115,24 +124,24 @@ def expm(A):
     frac, expo = jnp.frexp(jnp.maximum(x, 1e-300))
     expo = jnp.where(frac == 0.5, expo - 1, expo)
     expo = jnp.maximum(expo, 0)
-    on_cpu = jax.default_backend() == "cpu"
-    if not on_cpu:
+    masked = backend.choices().expm_squarings == "masked"
+    if masked:
         expo = jnp.minimum(expo, _STATIC_SQUARINGS)
     A = A * jnp.exp2(-expo)[..., None, None].astype(A.dtype)
 
-    A2 = A @ A
-    A4 = A2 @ A2
-    A6 = A2 @ A4
+    A2 = _mm(A, A)
+    A4 = _mm(A2, A2)
+    A6 = _mm(A2, A4)
     V = _C[7] * A6 + _C[5] * A4 + _C[3] * A2 + _C[1] * eye
-    U = A @ V
+    U = _mm(A, V)
     V = _C[6] * A6 + _C[4] * A4 + _C[2] * A2 + _C[0] * eye
     R = solve_mat(V - U, 2.0 * U) + eye
 
-    if not on_cpu:
-        # fixed masked chain: no while_loop dispatch overhead on device;
+    if masked:
+        # fixed masked chain: no loop condition read back per trip;
         # identical squaring counts to the dynamic loop for expo <= 13
         for i in range(_STATIC_SQUARINGS):
-            R = jnp.where((i < expo)[..., None, None], R @ R, R)
+            R = jnp.where((i < expo)[..., None, None], _mm(R, R), R)
         return R
 
     n_needed = jnp.minimum(jnp.max(expo), _MAX_SQUARINGS)
@@ -143,7 +152,7 @@ def expm(A):
 
     def body(state):
         i, R = state
-        sq = R @ R
+        sq = _mm(R, R)
         return i + 1, jnp.where((i < expo)[..., None, None], sq, R)
 
     _, R = jax.lax.while_loop(cond, body, (jnp.int32(0), R))
@@ -154,14 +163,10 @@ def expm(A):
 # Plane-form ("structure of arrays") small-matrix algebra.
 #
 # A matrix is a list-of-lists of equal-shaped jnp arrays ("planes"); a
-# vector is a list of planes.  On TPU this is the *fast* representation
-# for the SPARTACUS layer math: arrays shaped (..., m, m) put the tiny
-# matrix dims on the physical (sublane, lane) tile, which pads 3x3/6x6
-# up to (8, 128) — the round-4 profile showed the layer-matrix phase
-# running ~200x above its memory roofline because every slice/solve/
-# matmul paid that padding.  Plane form keeps every operation a fused
-# full-width elementwise op on well-tiled (batch...) arrays; the m^3
-# unrolled FLOPs are trivial on the VPU.
+# vector is a list of planes.  This is the representation of the
+# SPARTACUS layer math: every operation is a fused full-width
+# elementwise op over the (batch...) arrays instead of many tiny
+# (m, m) matrix operations; the m^3 unrolled FLOPs are cheap.
 
 def planes_from(A):
     """(..., m, n) -> [[plane]]."""
@@ -435,8 +440,7 @@ def pl_fast_expm_exchange_3(a, b, c, d):
 
     small = tmp2 < 1e-3
     h2 = tmp2 * tmp2
-    # sinh(x)/x via exp (Pallas TPU has no sinh primitive); series for
-    # the confluent-eigenvalue limit
+    # sinh(x)/x via exp; series for the confluent-eigenvalue limit
     ex = jnp.exp(jnp.where(small, 1.0, tmp2))
     sinh_over = jnp.where(
         small, 1.0 + h2 / 6.0 * (1.0 + h2 / 20.0),
@@ -477,10 +481,9 @@ def fast_expm_exchange_2(a, b):
 def _phi1(x):
     """(e^x - 1)/x with the x->0 limit (stable for all x <= 0).
 
-    Series below |x| < 0.1 (next term ~2e-10 rel), exp form above —
-    written without expm1, which Pallas TPU cannot lower; the exp-form
-    cancellation is <= eps/0.1 ~ 1.2e-6 rel in f32, below the solver
-    noise floor."""
+    Series below |x| < 0.1 (next term ~2e-10 rel), exp form above; the
+    exp-form cancellation is <= eps/0.1 ~ 1.2e-6 rel in f32, below the
+    solver noise floor."""
     small = jnp.abs(x) < 0.1
     xs = jnp.where(small, 0.0, x)
     safe = jnp.where(small, 1.0, xs)
@@ -515,8 +518,7 @@ def fast_expm_exchange_3(a, b, c, d):
     # dd1(l1,l2): exact symmetric form, series for small half-gap
     small = tmp2 < 1e-3
     h2 = tmp2 * tmp2
-    # sinh(x)/x via exp (Pallas TPU has no sinh primitive); series for
-    # the confluent-eigenvalue limit
+    # sinh(x)/x via exp; series for the confluent-eigenvalue limit
     ex = jnp.exp(jnp.where(small, 1.0, tmp2))
     sinh_over = jnp.where(
         small, 1.0 + h2 / 6.0 * (1.0 + h2 / 20.0),
@@ -543,4 +545,4 @@ def fast_expm_exchange_3(a, b, c, d):
     eye = jnp.eye(3, dtype=dtype)
     M_shift = M - lam1[..., None, None] * eye
     return (eye + _phi1(lam1)[..., None, None] * M
-            + dd2[..., None, None] * (M @ M_shift))
+            + dd2[..., None, None] * _mm(M, M_shift))

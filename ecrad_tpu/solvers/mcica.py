@@ -5,7 +5,7 @@ Reference: radiation_mcica_lw.F90:39-285, radiation_mcica_sw.F90:41-410.
 The stochastic cloud sample (``od_scaling`` per g-point/layer and
 ``total_cloud_cover``) is an *input* here: it is produced either by the
 bit-exact host generator (solvers/cloud_generator_exact.py, used for
-golden-file validation) or the TPU-native counter-based generator
+golden-file validation) or the on-device counter-based generator
 (solvers/cloud_generator.py).  Everything else is batched JAX identical in
 structure to the cloudless solver, with clear/cloudy layer properties
 merged by masks rather than the reference's per-column branches.
@@ -21,29 +21,21 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-import numpy as np
-
+from ecrad_tpu import backend
 from ecrad_tpu.optics.rrtmg_interp import take_bands
-from ecrad_tpu.solvers import adding, two_stream
+from ecrad_tpu.solvers import adding, two_stream, triton_mcica
+from ecrad_tpu.solvers.adding import (LwAdding, SwAdding, _stack_bot,
+                                      _stack_top)
 from ecrad_tpu.solvers.lw_derivatives import lw_derivatives_ica
 from ecrad_tpu.solvers.outputs import LwFluxes, SwFluxes
 from ecrad_tpu import profiling
 
 
-def _gcounts(band_from_g):
-    """Static per-band g counts; the g axis must be band-contiguous
-    (RRTMG band-major ordering) for the in-kernel staircase expansion."""
-    bfg = np.asarray(band_from_g)
-    if np.any(np.diff(bfg) < 0):
-        return None
-    return tuple(int(c) for c in np.bincount(bfg))
-
-
-def _use_fused(spec_matrix, band_from_g):
-    """Fused Pallas solver applies on accelerators for the reduced
-    (no spectral-profile) contract with band-contiguous g ordering."""
-    return (spec_matrix is None and adding._mode() == "pallas"
-            and _gcounts(band_from_g) is not None)
+def _use_fused(spec_matrix):
+    """The fused Triton sweeps (solvers/triton_mcica.py) serve the
+    reduced (no spectral-profile) contract where the backend chooses
+    them."""
+    return spec_matrix is None and backend.choices().sweeps == "triton"
 
 
 def _mix(w, cloudy, clear):
@@ -100,13 +92,12 @@ def solver_mcica_lw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
       cloud_fraction: (ncol, nlev)
       spec_matrix: optional (ng, nspec) projection for spectral profiles
     """
-    if layout == "knl":
-        assert (_use_fused(spec_matrix, band_from_g)
-                and do_lw_cloud_scattering
-                and not do_lw_aerosol_scattering), \
-            "kernel-layout inputs require the fused-solver configuration"
-    if (_use_fused(spec_matrix, band_from_g) and do_lw_cloud_scattering
-            and not do_lw_aerosol_scattering):
+    fused = (_use_fused(spec_matrix) and do_lw_cloud_scattering
+             and not do_lw_aerosol_scattering)
+    if layout == "knl" and not fused:
+        raise ValueError(
+            "kernel-layout inputs require the fused-solver configuration")
+    if fused:
         return _solver_mcica_lw_fused(
             od, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
             od_scaling, total_cloud_cover, cloud_fraction, planck_hl,
@@ -209,72 +200,52 @@ def _finish_lw(clear, tot, total_cloud_cover, cloud_fraction_threshold,
     return out
 
 
+def _kernel_inputs(layout, cloudy, dtype):
+    """Relayout helpers for the fused sweeps: (big-array, per-band,
+    mask) converters to the (nlev, ng|nband, ncol) kernel layout.  With
+    layout="knl" the big (ncol*nlev*ng) fields already arrive in it
+    from the gas optics and cloud generator; only the small per-band
+    cloud arrays and the mask are relaid here."""
+    band = lambda x: jnp.transpose(x, (1, 2, 0))
+    big = (lambda x: x) if layout == "knl" else band
+    return big, band, cloudy.astype(dtype).T
+
+
 def _solver_mcica_lw_fused(od, od_cloud_b, ssa_cloud_b, g_cloud_b,
                            band_from_g, od_scaling, total_cloud_cover,
                            cloud_fraction, planck_hl, emission, albedo,
                            cloud_fraction_threshold, do_lw_derivatives,
                            layout="cln") -> LwFluxes:
-    """Fused-kernel LW path (see solvers/pallas_mcica.py).
-
-    layout="knl": od/od_scaling/planck_hl arrive already in kernel
-    layout (nlev, ng, ncol) from the gas-optics producers — only the
-    small per-band cloud arrays and surface planes are relaid here, so
-    no (ncol·nlev·ng) transpose exists anywhere on the hot path."""
-    from ecrad_tpu.solvers import pallas_mcica
-    from ecrad_tpu.solvers.adding import (LwAdding, _kernel_cols,
-                                          _pad_cols, _stack_bot,
-                                          _stack_top, _to_kern,
-                                          _to_kern_surf)
-
-    ncol, nlev = cloud_fraction.shape
-    ncolp = _kernel_cols(ncol)
-    gcounts = _gcounts(band_from_g)
-    cloudy = (cloud_fraction >= cloud_fraction_threshold)
+    """Fused-kernel LW path (see solvers/triton_mcica.py)."""
+    ncol = cloud_fraction.shape[0]
+    cloudy = cloud_fraction >= cloud_fraction_threshold
+    big, band, mask = _kernel_inputs(layout, cloudy, od.dtype)
     albedo_b = jnp.broadcast_to(albedo, emission.shape)
 
-    if layout == "knl":
-        maskk = _pad_cols(cloudy.astype(od.dtype).T[:, None, :], ncolp)
-        big = lambda x: _pad_cols(x, ncolp)
-        band = lambda x: _pad_cols(jnp.transpose(x, (1, 2, 0)), ncolp)
-    else:
-        maskk = _to_kern(cloudy.astype(od.dtype)[:, :, None], ncolp)
-        big = lambda x: _to_kern(x, ncolp)
-        band = lambda x: _to_kern(x, ncolp)
-
-    r = pallas_mcica.lw_fused(
+    r = triton_mcica.lw_sweeps(
         big(od), band(od_cloud_b), band(ssa_cloud_b), band(g_cloud_b),
-        big(od_scaling), maskk, big(planck_hl),
-        _to_kern_surf(emission, ncolp), _to_kern_surf(albedo_b, ncolp),
-        gcounts, do_lw_derivatives)
+        big(od_scaling), mask, big(planck_hl), emission.T, albedo_b.T,
+        band_from_g, do_lw_derivatives)
 
-    def gcol(x):                                   # (ng, ncolp) → (ncol, ng)
-        return x[:, :ncol].T
-
-    def bbl(x):                                    # (nlev, ncolp) → (nlev, ncol)
-        return x[:, :ncol]
-
-    fup_surf_c = gcol(r["fup_surf_c"])
+    fup_surf_c = r["fup_surf_c"].T                 # (ng, ncol) → (ncol, ng)
+    zeros = jnp.zeros((ncol,), od.dtype)
     clear = LwAdding(
-        up=_stack_bot(bbl(r["up_bb_c"]), jnp.sum(fup_surf_c, axis=-1)),
-        dn=_stack_top(jnp.zeros((ncol,), od.dtype), bbl(r["dn_bb_c"])),
-        up_toa_g=gcol(r["fup_toa_c"]),
-        dn_surf_g=gcol(r["fdn_surf_c"]),
+        up=_stack_bot(r["up_bb_c"], jnp.sum(fup_surf_c, axis=-1)),
+        dn=_stack_top(zeros, r["dn_bb_c"]),
+        up_toa_g=r["fup_toa_c"].T, dn_surf_g=r["fdn_surf_c"].T,
         up_surf_g=fup_surf_c)
-    src_top_t = gcol(r["src_top_t"])
+    src_top_t = r["src_top_t"].T
     tot = LwAdding(
-        up=_stack_top(jnp.sum(src_top_t, axis=-1), bbl(r["up_bb_t"])),
-        dn=_stack_top(jnp.zeros((ncol,), od.dtype), bbl(r["dn_bb_t"])),
-        up_toa_g=src_top_t,
-        dn_surf_g=gcol(r["fdn_surf_t"]),
-        up_surf_g=gcol(r["fup_surf_t"]))
+        up=_stack_top(jnp.sum(src_top_t, axis=-1), r["up_bb_t"]),
+        dn=_stack_top(zeros, r["dn_bb_t"]),
+        up_toa_g=src_top_t, dn_surf_g=r["fdn_surf_t"].T,
+        up_surf_g=r["fup_surf_t"].T)
 
     deriv_cloudy = deriv_clear = None
     if do_lw_derivatives:
         ones = jnp.ones((ncol, 1), od.dtype)
-        deriv_cloudy = jnp.concatenate([bbl(r["deriv_t"]).T, ones],
-                                       axis=-1)
-        deriv_clear = jnp.concatenate([bbl(r["deriv_c"]).T, ones],
-                                      axis=-1)
+        deriv_cloudy = jnp.concatenate([r["deriv_t"].T, ones], axis=-1)
+        deriv_clear = jnp.concatenate([r["deriv_c"].T, ones], axis=-1)
     return _finish_lw(clear, tot, total_cloud_cover,
                       cloud_fraction_threshold, deriv_cloudy, deriv_clear)
 
@@ -287,10 +258,10 @@ def solver_mcica_sw(od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
                     cloud_fraction_threshold=1.0e-6,
                     do_sw_delta_scaling_with_gases=False,
                     spec_matrix=None, layout="cln") -> SwFluxes:
-    if layout == "knl":
-        assert _use_fused(spec_matrix, band_from_g), \
-            "kernel-layout inputs require the fused-solver configuration"
-    if _use_fused(spec_matrix, band_from_g):
+    if layout == "knl" and not _use_fused(spec_matrix):
+        raise ValueError(
+            "kernel-layout inputs require the fused-solver configuration")
+    if _use_fused(spec_matrix):
         return _solver_mcica_sw_fused(
             od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
             od_scaling, total_cloud_cover, cloud_fraction, incoming_sw,
@@ -400,64 +371,34 @@ def _solver_mcica_sw_fused(od, ssa, g, od_cloud_b, ssa_cloud_b,
                            albedo_direct, cloud_fraction_threshold,
                            do_sw_delta_scaling_with_gases,
                            layout="cln") -> SwFluxes:
-    """Fused-kernel SW path (see solvers/pallas_mcica.py); layout="knl"
-    receives od/ssa/g/od_scaling already in kernel layout."""
-    from ecrad_tpu.solvers import pallas_mcica
-    from ecrad_tpu.solvers.adding import (SwAdding, _kernel_cols,
-                                          _pad_cols, _stack_top,
-                                          _to_kern, _to_kern_surf)
-
-    ncol, nlev = cloud_fraction.shape
-    ncolp = _kernel_cols(ncol)
-    gcounts = _gcounts(band_from_g)
-    cloudy = (cloud_fraction >= cloud_fraction_threshold)
-
-    if layout == "knl":
-        maskk = _pad_cols(cloudy.astype(od.dtype).T[:, None, :], ncolp)
-        big = lambda x: _pad_cols(x, ncolp)
-        band = lambda x: _pad_cols(jnp.transpose(x, (1, 2, 0)), ncolp)
-    else:
-        maskk = _to_kern(cloudy.astype(od.dtype)[:, :, None], ncolp)
-        big = lambda x: _to_kern(x, ncolp)
-        band = lambda x: _to_kern(x, ncolp)
-
+    """Fused-kernel SW path (see solvers/triton_mcica.py)."""
+    ncol = cloud_fraction.shape[0]
+    cloudy = cloud_fraction >= cloud_fraction_threshold
+    big, band, mask = _kernel_inputs(layout, cloudy, od.dtype)
     mu0_col = jnp.maximum(cos_sza, 1.0e-10)            # (ncol,)
-    mu0k = _pad_cols(mu0_col[None, :], ncolp)          # (1, ncolp)
     alb_dif = jnp.broadcast_to(albedo_diffuse, incoming_sw.shape)
     alb_dir_mu0 = jnp.broadcast_to(albedo_direct * mu0_col[:, None],
                                    incoming_sw.shape)
 
-    r = pallas_mcica.sw_fused(
+    r = triton_mcica.sw_sweeps(
         big(od), big(ssa), big(g),
         band(od_cloud_b), band(ssa_cloud_b), band(g_cloud_b),
-        big(od_scaling),
-        maskk, mu0k, _to_kern_surf(incoming_sw, ncolp),
-        _to_kern_surf(alb_dif, ncolp),
-        _to_kern_surf(alb_dir_mu0, ncolp),
-        gcounts, do_sw_delta_scaling_with_gases)
+        big(od_scaling), mask, mu0_col, incoming_sw.T, alb_dif.T,
+        alb_dir_mu0.T, band_from_g, do_sw_delta_scaling_with_gases)
 
-    def gcol(x):
-        return x[:, :ncol].T
-
-    def bbl(x):
-        return x[:, :ncol]
-
-    mu0 = mu0_col[:, None]                             # (ncol, 1)
     dir_toa_bb = jnp.sum(incoming_sw, axis=-1)
     zeros_bb = jnp.zeros((ncol,), od.dtype)
 
     def scene(tag):
-        src_top = gcol(r[f"src_top_{tag}"])
-        fdir_surf = gcol(r[f"fdir_surf_{tag}"])
+        src_top = r[f"src_top_{tag}"].T
         return SwAdding(
-            up=_stack_top(jnp.sum(src_top, axis=-1),
-                          bbl(r[f"up_bb_{tag}"])),
-            dn_diffuse=_stack_top(zeros_bb, bbl(r[f"dn_bb_{tag}"])),
-            dn_direct=_stack_top(dir_toa_bb, bbl(r[f"dir_bb_{tag}"]))
+            up=_stack_top(jnp.sum(src_top, axis=-1), r[f"up_bb_{tag}"]),
+            dn_diffuse=_stack_top(zeros_bb, r[f"dn_bb_{tag}"]),
+            dn_direct=_stack_top(dir_toa_bb, r[f"dir_bb_{tag}"])
             * mu0_col[:, None],
             up_toa_g=src_top,
-            dn_diffuse_surf_g=gcol(r[f"fdn_surf_{tag}"]),
-            dn_direct_surf_g=fdir_surf * mu0)
+            dn_diffuse_surf_g=r[f"fdn_surf_{tag}"].T,
+            dn_direct_surf_g=r[f"fdir_surf_{tag}"].T * mu0_col[:, None])
 
     return _finish_sw(scene("c"), scene("t"), total_cloud_cover,
                       cloud_fraction_threshold, cos_sza)

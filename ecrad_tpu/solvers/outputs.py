@@ -4,7 +4,7 @@ Every SW/LW solver returns these tuples so radiation() has exactly one
 post-processing path (reference: the per-solver output packing in
 radiation_interface.F90:427-499 is likewise uniform over flux_type).
 
-Memory contract (the TPU-critical part): profiles are **broadband**
+Memory contract (what bounds device memory): profiles are **broadband**
 ``(ncol, nlev+1)``; spectrally-resolved data exists only as
 surface/TOA g slices ``(ncol, ng)`` plus, when spectral flux output is
 requested, ``*_s`` profiles ``(ncol, nlev+1, nspec)`` projected through a
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 
 
@@ -62,7 +63,9 @@ class SwFluxes(NamedTuple):
 
 
 def _proj(x_g, spec_matrix):
-    return None if spec_matrix is None else x_g @ spec_matrix
+    if spec_matrix is None:
+        return None
+    return jnp.matmul(x_g, spec_matrix, precision=jax.lax.Precision.HIGHEST)
 
 
 def lw_from_g_profiles(*, flux_up_g, flux_dn_g, flux_up_clear_g,

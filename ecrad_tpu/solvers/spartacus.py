@@ -4,19 +4,16 @@ Reference: radiation/radiation_spartacus_sw.F90 (solver L41-965,
 step_migrations L966-1046), radiation_spartacus_lw.F90 (solver L35-607),
 radiation_lw_derivatives.F90:138-193 (calc_lw_derivatives_matrix).
 
-TPU formulation: the reference's per-column/per-layer/per-g triple loop
-with data-dependent ``ng3D`` cutoffs becomes dense batched compute over
-(ncol, ng) with masks.  ALL small-matrix state — the per-layer
+Batched formulation: the reference's per-column/per-layer/per-g triple
+loop with data-dependent ``ng3D`` cutoffs becomes dense batched compute
+over (ncol, ng) with masks.  ALL small-matrix state — the per-layer
 reflectance/transmittance matrices (including the 6x6 / 9x9 matrix
 exponentials), the upward albedo accumulation, and the downward flux
 sweep — lives in PLANE FORM: a 3x3 matrix is a list-of-lists of
 (ncol, ng) planes, a region vector a list of planes (see
-solvers/matrix.py pl_* algebra).  Arrays shaped (..., 3, 3) put the tiny
-matrix dims on the TPU (sublane, lane) tile, padding each 3x3 to (8,128)
-— a ~100x physical blowup that made the round-4 array-form solver run
-~2000x above its HBM roofline.  Plane form keeps every op a fused
-full-width elementwise op; the m^3 unrolled FLOPs are trivial on the
-VPU.  For scan xs / ys, plane matrices travel stacked on a leading
+solvers/matrix.py pl_* algebra).  Plane form keeps every op a fused
+full-width elementwise op over the (ncol, ng) batch instead of many
+tiny (3, 3) matrix operations.  For scan xs / ys, plane matrices travel stacked on a leading
 length-9 (or 3) axis: (..., 9, ncol, ng) with k = 3*i + j.
 
 Per-layer matrices are computed by a ``lax.map`` over level CHUNKS
@@ -56,6 +53,12 @@ from ecrad_tpu.solvers.tripleclouds import (calc_region_properties,
                                             _merge_regions)
 from ecrad_tpu import profiling
 
+# Doublings of the LW SPARTACUS layer (see layer_mats): the 6x6 exponent's
+# 1-norm is bounded by ~2*max_cloud_od*gamma1 + 4*max_3d_transfer_rate
+# *side_emiss ~ 120, so a 2^-6 sub-layer's stays near 2, where R and T
+# come out of its exponential accurately.
+_LW_DOUBLINGS = 6
+
 # radiation_constants.F90:30-33
 R_OVER_G = 287.058 / 9.80665
 FOUR_OVER_PI = 4.0 / np.pi
@@ -69,9 +72,9 @@ _EPS = float(np.finfo(np.float64).eps)
 
 def _highest_precision(fn):
     """Trace the solver under full-precision matmuls: the exponentials
-    and solves are numerically delicate, and the TPU default (bf16
-    inputs) turns near-singular systems into NaNs.  These matrices are
-    tiny, so the cost is negligible."""
+    and solves are numerically delicate, and reduced-precision matmul
+    inputs (bf16 or TF32) turn near-singular systems into NaNs.  These
+    matrices are tiny, so the cost is negligible."""
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
         with jax.default_matmul_precision("highest"):
@@ -250,18 +253,14 @@ def _use_expm_mask(config: Config, od_gas, active_3d):
 
 
 def _level_chunk() -> int:
-    """Levels vmapped per lax.map step of the layer-matrix builder.
-    Measured on TPU v5e (ncol=512, ng=112, SW 9x9 expm): chunk=1 is the
-    FASTEST (216 ms) and it only gets worse with batching — 2: 228 ms,
-    4: 378 ms, 8: 780 ms, 32: 1473 ms — because the ~80-plane expm
-    working set stays VMEM-resident at chunk=1 and spills to HBM as the
-    chunk grows.  Tunable via ECRAD_TPU_SPARTACUS_CHUNK."""
+    """Levels vmapped per lax.map step of the layer-matrix builder
+    (ECRAD_TPU_SPARTACUS_CHUNK, default 1).  A larger chunk batches more
+    levels per step for a larger expm working set."""
     return int(os.environ.get("ECRAD_TPU_SPARTACUS_CHUNK", "1"))
 
 
 class SwOpts(NamedTuple):
-    """Static (compile-time) SW sweep options shared by the lax.scan
-    path and the Pallas sweep kernels (solvers/pallas_spartacus.py)."""
+    """Static (compile-time) SW sweep options."""
     mode: object                 # Entrapment
     do_3d: bool
     overhang_factor: float
@@ -275,9 +274,9 @@ class LwOpts(NamedTuple):
 
 def _sw_up_core(carry, mats, cl5, u9b, v9b, msk, ent, opts: SwOpts):
     """One SW upward adding step in plane form — the pure math of
-    radiation_spartacus_sw.F90:444-777, shared verbatim between the
-    lax.scan sweep and the Pallas sweep kernel (all per-column inputs
-    arrive broadcast-ready as (..., 1) planes).
+    radiation_spartacus_sw.F90:444-777, the body of the lax.scan
+    up-sweep (all per-column inputs arrive broadcast-ready as (..., 1)
+    planes).
 
     carry: (alb [[p]], albd [[p]], alb_c p, albd_c p, xdif [p], xdir [p])
     mats:  (R, T, Rd, Tdd, Tdir) as [[plane]]
@@ -837,113 +836,79 @@ def solver_spartacus_sw(config: Config, od, ssa, g, od_cloud_b,
     ddn0 = tuple(incoming_sw * reg_fracs[:, 0, r][:, None]
                  for r in range(NREG))
 
-    from ecrad_tpu.solvers.adding import _mode as _adding_mode
-    from ecrad_tpu.solvers import pallas_spartacus as psp
-    use_psweeps = (_adding_mode() == "pallas"
-                   and psp._col_rows(ncol) is not None)
-    if use_psweeps:
-        # Pallas sweep kernels (solvers/pallas_spartacus.py): same core
-        # math, carries in VMEM, one kernel per sweep
-        tr2 = lambda a: jnp.transpose(a, (1, 0, 2))
-        if9 = lambda m: tr2(m.reshape(ncol, nlev, 9))
-        mk = lambda *fs: tr2(jnp.stack(
-            [jnp.broadcast_to(f, (ncol, nlev)).astype(dtype)
-             for f in fs], -1))
-        msk_up = mk(clear_layer, clear_pad[:, :-2],
-                    at_or_below_cloud_top, not_top[None, :])
-        msk_dn = mk(clear_layer, clear_pad[:, 2:])
-        ent13 = mk(reg_fracs[..., 0], reg_fracs[..., 1],
-                   reg_fracs[..., 2],
-                   el_above[..., 0], el_above[..., 1], el_above[..., 2],
-                   rf_above[..., 0], rf_above[..., 1], rf_above[..., 2],
-                   inv_size_above, op_above,
-                   x_lay_dif_all, x_lay_dir_all)
-        cl5p = (lev(r_cl), lev(t_cl), lev(rd_cl), lev(tdd_cl),
-                lev(tdir_cl))
-        albd_f9, alb_c_f, albd_c_f, dn = psp.sw_sweeps(
-            sw_opts, Rs, Ts, Rds, Tdds, Tdirs, cl5p,
-            if9(u_mat[:, :-1]), if9(v_mat[:, :-1]), if9(v_mat[:, 1:]),
-            msk_up, msk_dn, ent13,
-            _pstack([list(r) for r in alb0]),
-            _pstack([list(r) for r in albd0]),
-            bc(albedo_diffuse), bc(mu0[:, None] * albedo_direct),
-            _pstack(list(ddn0)), bc(incoming_sw))
-        fup_l, fdn_l, fdir_l, fup_cl, fdn_cl, fdir_cl = dn
-        albd_f = _punstack(albd_f9)
-    else:
-        def up_step(carry, xs):
-            """Thin scan wrapper over _sw_up_core: unpack the stacked
-            planes, broadcast the per-column scalars, emit the ENTRY
-            carry as this level's ys."""
-            alb, albd, alb_c, albd_c, xdif, xdir = carry
-            (R9, T9, Rd9, Tdd9, Tdir9, rcl, tcl, rdcl, tddcl, tdircl,
-             u9, v9, clr, clr_above, migrate, rf3, elp3, rfp3, invszp,
-             opp, ntop, xld, xldir) = xs
-            b = lambda x: x[:, None]
-            mats = tuple(_punstack(x)
-                         for x in (R9, T9, Rd9, Tdd9, Tdir9))
-            u9b = [b(u9[k]) for k in range(NREG * NREG)]
-            v9b = [b(v9[k]) for k in range(NREG * NREG)]
-            msk = (b(clr), b(clr_above), b(migrate), b(ntop))
-            ent = ([b(rf3[r]) for r in range(NREG)],
-                   [b(elp3[r]) for r in range(NREG)],
-                   [b(rfp3[r]) for r in range(NREG)],
-                   b(invszp), b(opp), b(xld), b(xldir))
-            out_albs = (_pstack([list(r) for r in alb]),
-                        _pstack([list(r) for r in albd]), alb_c, albd_c)
-            alb_n, albd_n, alb_c_n, albd_c_n, xdif_n, xdir_n = \
-                _sw_up_core(
-                    (alb, albd, alb_c, albd_c, xdif, xdir), mats,
-                    (rcl, tcl, rdcl, tddcl, tdircl), u9b, v9b, msk,
-                    ent, sw_opts)
-            tup = lambda A: tuple(tuple(row) for row in A)
-            return (tup(alb_n), tup(albd_n), alb_c_n, albd_c_n,
-                    tuple(xdif_n), tuple(xdir_n)), out_albs
+    def up_step(carry, xs):
+        """Thin scan wrapper over _sw_up_core: unpack the stacked
+        planes, broadcast the per-column scalars, emit the ENTRY
+        carry as this level's ys."""
+        alb, albd, alb_c, albd_c, xdif, xdir = carry
+        (R9, T9, Rd9, Tdd9, Tdir9, rcl, tcl, rdcl, tddcl, tdircl,
+         u9, v9, clr, clr_above, migrate, rf3, elp3, rfp3, invszp,
+         opp, ntop, xld, xldir) = xs
+        b = lambda x: x[:, None]
+        mats = tuple(_punstack(x)
+                     for x in (R9, T9, Rd9, Tdd9, Tdir9))
+        u9b = [b(u9[k]) for k in range(NREG * NREG)]
+        v9b = [b(v9[k]) for k in range(NREG * NREG)]
+        msk = (b(clr), b(clr_above), b(migrate), b(ntop))
+        ent = ([b(rf3[r]) for r in range(NREG)],
+               [b(elp3[r]) for r in range(NREG)],
+               [b(rfp3[r]) for r in range(NREG)],
+               b(invszp), b(opp), b(xld), b(xldir))
+        out_albs = (_pstack([list(r) for r in alb]),
+                    _pstack([list(r) for r in albd]), alb_c, albd_c)
+        alb_n, albd_n, alb_c_n, albd_c_n, xdif_n, xdir_n = \
+            _sw_up_core(
+                (alb, albd, alb_c, albd_c, xdif, xdir), mats,
+                (rcl, tcl, rdcl, tddcl, tdircl), u9b, v9b, msk,
+                ent, sw_opts)
+        tup = lambda A: tuple(tuple(row) for row in A)
+        return (tup(alb_n), tup(albd_n), alb_c_n, albd_c_n,
+                tuple(xdif_n), tuple(xdir_n)), out_albs
 
-        carry0 = (alb0, albd0, bc(albedo_diffuse),
-                  bc(mu0[:, None] * albedo_direct),
-                  (zcg,) * NREG, (zcg,) * NREG)
-        xs_up = (Rs, Ts, Rds, Tdds, Tdirs,
-                 lev(r_cl), lev(t_cl), lev(rd_cl), lev(tdd_cl),
-                 lev(tdir_cl),
-                 _lev9(u_mat[:, :-1]), _lev9(v_mat[:, :-1]),
-                 lev(clear_layer), lev(clear_pad[:, :-2]),
-                 lev(at_or_below_cloud_top), _lev3(reg_fracs),
-                 _lev3(el_above), _lev3(rf_above), lev(inv_size_above),
-                 lev(op_above),
-                 jnp.broadcast_to(not_top[:, None], (nlev, ncol)),
-                 lev(x_lay_dif_all), lev(x_lay_dir_all))
-        (alb_f, albd_f, alb_c_f, albd_c_f, _, _), \
-            (alb_s9, albd_s9, alb_c_s, albd_c_s) = jax.lax.scan(
-                up_step, carry0, xs_up, reverse=True)
+    carry0 = (alb0, albd0, bc(albedo_diffuse),
+              bc(mu0[:, None] * albedo_direct),
+              (zcg,) * NREG, (zcg,) * NREG)
+    xs_up = (Rs, Ts, Rds, Tdds, Tdirs,
+             lev(r_cl), lev(t_cl), lev(rd_cl), lev(tdd_cl),
+             lev(tdir_cl),
+             _lev9(u_mat[:, :-1]), _lev9(v_mat[:, :-1]),
+             lev(clear_layer), lev(clear_pad[:, :-2]),
+             lev(at_or_below_cloud_top), _lev3(reg_fracs),
+             _lev3(el_above), _lev3(rf_above), lev(inv_size_above),
+             lev(op_above),
+             jnp.broadcast_to(not_top[:, None], (nlev, ncol)),
+             lev(x_lay_dif_all), lev(x_lay_dir_all))
+    (alb_f, albd_f, alb_c_f, albd_c_f, _, _), \
+        (alb_s9, albd_s9, alb_c_s, albd_c_s) = jax.lax.scan(
+            up_step, carry0, xs_up, reverse=True)
 
-        # ---- downward pass (radiation_spartacus_sw.F90:779-957)
-        def dn_step(carry, xs):
-            fdn, ddn, fdn_c, ddn_c = carry
-            (R9, T9, Rd9, Tdd9, Tdir9, rcl, tcl, rdcl, tddcl, tdircl,
-             alb_n9, albd_n9, alb_cn, albd_cn, v9b_, clr,
-             clr_below) = xs
-            b = lambda x: x[:, None]
-            mats = tuple(_punstack(x)
-                         for x in (R9, T9, Rd9, Tdd9, Tdir9))
-            below = (_punstack(alb_n9), _punstack(albd_n9), alb_cn,
-                     albd_cn)
-            v9b = [b(v9b_[k]) for k in range(NREG * NREG)]
-            (fdn_n, ddn_n, fdn_c2, ddn_c2), ys = _sw_dn_core(
-                (fdn, ddn, fdn_c, ddn_c), mats,
-                (rcl, tcl, rdcl, tddcl, tdircl), below, v9b,
-                (b(clr), b(clr_below)))
-            return (tuple(fdn_n), tuple(ddn_n), fdn_c2, ddn_c2), ys
+    # ---- downward pass (radiation_spartacus_sw.F90:779-957)
+    def dn_step(carry, xs):
+        fdn, ddn, fdn_c, ddn_c = carry
+        (R9, T9, Rd9, Tdd9, Tdir9, rcl, tcl, rdcl, tddcl, tdircl,
+         alb_n9, albd_n9, alb_cn, albd_cn, v9b_, clr,
+         clr_below) = xs
+        b = lambda x: x[:, None]
+        mats = tuple(_punstack(x)
+                     for x in (R9, T9, Rd9, Tdd9, Tdir9))
+        below = (_punstack(alb_n9), _punstack(albd_n9), alb_cn,
+                 albd_cn)
+        v9b = [b(v9b_[k]) for k in range(NREG * NREG)]
+        (fdn_n, ddn_n, fdn_c2, ddn_c2), ys = _sw_dn_core(
+            (fdn, ddn, fdn_c, ddn_c), mats,
+            (rcl, tcl, rdcl, tddcl, tdircl), below, v9b,
+            (b(clr), b(clr_below)))
+        return (tuple(fdn_n), tuple(ddn_n), fdn_c2, ddn_c2), ys
 
-        carry_dn0 = ((zcg,) * NREG, ddn0, zcg, bc(incoming_sw))
-        xs_dn = (Rs, Ts, Rds, Tdds, Tdirs,
-                 lev(r_cl), lev(t_cl), lev(rd_cl), lev(tdd_cl),
-                 lev(tdir_cl),
-                 alb_s9, albd_s9, alb_c_s, albd_c_s,
-                 _lev9(v_mat[:, 1:]), lev(clear_layer),
-                 lev(clear_pad[:, 2:]))
-        _, (fup_l, fdn_l, fdir_l, fup_cl, fdn_cl, fdir_cl) = \
-            jax.lax.scan(dn_step, carry_dn0, xs_dn)
+    carry_dn0 = ((zcg,) * NREG, ddn0, zcg, bc(incoming_sw))
+    xs_dn = (Rs, Ts, Rds, Tdds, Tdirs,
+             lev(r_cl), lev(t_cl), lev(rd_cl), lev(tdd_cl),
+             lev(tdir_cl),
+             alb_s9, albd_s9, alb_c_s, albd_c_s,
+             _lev9(v_mat[:, 1:]), lev(clear_layer),
+             lev(clear_pad[:, 2:]))
+    _, (fup_l, fdn_l, fdir_l, fup_cl, fdn_cl, fdir_cl) = \
+        jax.lax.scan(dn_step, carry_dn0, xs_dn)
 
     fup_toa = sum(pl_matvec([list(r) for r in albd_f], list(ddn0)))
     fup_toa_c = incoming_sw * albd_c_f
@@ -1093,22 +1058,19 @@ def solver_spartacus_lw(config: Config, od, ssa, g, od_cloud_b,
                         G[i][NREG + j] = -G2d[i] if i == j else zero
                         G[NREG + i][j] = G2d[i] if i == j else zero
                         G[NREG + i][NREG + j] = -D[i][j]
-                emis = [odr[r] * (1.0 - ssar[r]) * rfr[r]
-                        * LW_DIFFUSIVITY for r in range(NREG)]
-                dpl = plb - plt
-                pt = [-emis[r] * plt for r in range(NREG)] \
-                    + [emis[r] * plt for r in range(NREG)]
-                pd = [-emis[r] * dpl for r in range(NREG)] \
-                    + [emis[r] * dpl for r in range(NREG)]
-                sol_d = [-x for x in pl_solve_vec(G, pd)]
-                sol0 = pl_solve_vec(G, [sol_d[i] - pt[i]
-                                        for i in range(2 * NREG)])
-                # LW 6x6 norm is physically bounded by ~2*max_cloud_od
-                # *gamma1 + 4*max_3d_transfer_rate*side_emiss ~ 120
-                # << 2^6 * theta3 = 251 (asserted in
-                # tests/test_plane_algebra.py) — 6 squaring trips
-                # suffice, vs 13 for the SW direct block
-                E = pl_expm(G, max_squarings=6)
+                # Thin sub-layer of 2^-n the depth (G, the emissivity and
+                # the Planck increment all scale with depth), then n
+                # doublings.  Taking R and T of the whole layer from its
+                # own exponential (T = E22 - E21 E11^-1 E12) cancels
+                # terms of size exp(k od) down to exp(-k od), which
+                # float32 cannot resolve in thick cloud; the doubling
+                # (adding of two identical sub-layers) has no such
+                # cancellation.
+                scale = 0.5 ** _LW_DOUBLINGS
+                Gs = [[x * scale for x in row] for row in G]
+                e_s = [odr[r] * (1.0 - ssar[r]) * rfr[r]
+                       * (LW_DIFFUSIVITY * scale) for r in range(NREG)]
+                E = pl_expm(Gs, max_squarings=6)
                 E11 = [row[0:NREG] for row in E[0:NREG]]
                 E12 = [row[NREG:] for row in E[0:NREG]]
                 E21 = [row[0:NREG] for row in E[NREG:]]
@@ -1118,15 +1080,55 @@ def solver_spartacus_lw(config: Config, od, ssa, g, od_cloud_b,
                 T_e = pl_matmul(E21, R_e)
                 T_e = [[T_e[i][j] + E22[i][j] for j in range(NREG)]
                        for i in range(NREG)]
-                v12 = pl_matvec(E12, sol0[NREG:])
-                tmp = [sol0[i] + sol_d[i] - v12[i] for i in range(NREG)]
-                xs_ = pl_solve_vec(E11, tmp)
-                su_e = [sol0[i] - xs_[i] for i in range(NREG)]
-                v21 = pl_matvec(E21, [su_e[i] - sol0[i]
-                                      for i in range(NREG)])
-                v22 = pl_matvec(E22, sol0[NREG:])
-                sd_e = [v21[i] + sol0[NREG + i] - v22[i]
-                        + sol_d[NREG + i] for i in range(NREG)]
+
+                def sources(sol0, sol_d):
+                    v12 = pl_matvec(E12, sol0[NREG:])
+                    tmp = [sol0[i] + sol_d[i] - v12[i]
+                           for i in range(NREG)]
+                    xs_ = pl_solve_vec(E11, tmp)
+                    su = [sol0[i] - xs_[i] for i in range(NREG)]
+                    v21 = pl_matvec(E21, [su[i] - sol0[i]
+                                          for i in range(NREG)])
+                    v22 = pl_matvec(E22, sol0[NREG:])
+                    sd = [v21[i] + sol0[NREG + i] - v22[i]
+                          + sol_d[NREG + i] for i in range(NREG)]
+                    return su, sd
+
+                # sources are linear in the Planck function at the
+                # sub-layer top (a) and its increment across it (b)
+                pe = [-x for x in e_s] + list(e_s)
+                au, ad = sources(pl_solve_vec(Gs, [-x for x in pe]),
+                                 [zero] * (2 * NREG))
+                sol_d = [-x for x in pl_solve_vec(Gs, pe)]
+                bu, bd = sources(pl_solve_vec(Gs, sol_d), sol_d)
+                one = jnp.ones_like(zero)
+                eye = [[one if i == j else zero for j in range(NREG)]
+                       for i in range(NREG)]
+                for _ in range(_LW_DOUBLINGS):
+                    tm = pl_matmul(T_e, pl_solve_mat(
+                        _peye_minus(pl_matmul(R_e, R_e)), eye))
+                    rau, rad = pl_matvec(R_e, au), pl_matvec(R_e, ad)
+                    rbu, rbd = pl_matvec(R_e, bu), pl_matvec(R_e, bd)
+                    up_a = pl_matvec(tm, [au[i] + rad[i]
+                                          for i in range(NREG)])
+                    up_b = pl_matvec(tm, [au[i] + bu[i] + rbd[i]
+                                          for i in range(NREG)])
+                    dn_a = pl_matvec(tm, [ad[i] + rau[i]
+                                          for i in range(NREG)])
+                    dn_b = pl_matvec(tm, [bd[i] + rau[i] + rbu[i]
+                                          for i in range(NREG)])
+                    au, bu, ad, bd = (
+                        [au[i] + up_a[i] for i in range(NREG)],
+                        [0.5 * (bu[i] + up_b[i]) for i in range(NREG)],
+                        [ad[i] + dn_a[i] for i in range(NREG)],
+                        [0.5 * (ad[i] + bd[i] + dn_b[i])
+                         for i in range(NREG)])
+                    R_e = _pmat_add(R_e, pl_matmul(pl_matmul(tm, R_e),
+                                                   T_e))
+                    T_e = pl_matmul(tm, T_e)
+                dpl = plb - plt
+                su_e = [au[i] * plt + bu[i] * dpl for i in range(NREG)]
+                sd_e = [ad[i] * plt + bd[i] * dpl for i in range(NREG)]
                 for i in range(NREG):
                     for j in range(NREG):
                         Rp[i][j] = jnp.where(uem, R_e[i][j], Rp[i][j])
@@ -1195,80 +1197,58 @@ def solver_spartacus_lw(config: Config, od, ssa, g, od_cloud_b,
     src0 = tuple(emission * reg_fracs[:, -1, r][:, None]
                  for r in range(NREG))
 
-    from ecrad_tpu.solvers.adding import _mode as _adding_mode
-    from ecrad_tpu.solvers import pallas_spartacus as psp
-    use_psweeps = (_adding_mode() == "pallas"
-                   and psp._col_rows(ncol) is not None)
-    if use_psweeps:
-        tr2 = lambda a: jnp.transpose(a, (1, 0, 2))
-        if9 = lambda m: tr2(m.reshape(ncol, nlev, 9))
-        mk = lambda *fs: tr2(jnp.stack(
-            [jnp.broadcast_to(f, (ncol, nlev)).astype(dtype)
-             for f in fs], -1))
-        msk_up = mk(clear_layer, clear_pad[:, :-2])
-        msk_dn = mk(clear_layer, clear_pad[:, 2:])
-        cl4p = (lev(r_cl), lev(t_cl), lev(su_cl), lev(sd_cl))
-        src_f3, src_c_f, dn = psp.lw_sweeps(
-            lw_opts, Rs, Ts, SUs, SDs, cl4p,
-            if9(u_mat[:, :-1]), if9(v_mat[:, :-1]), if9(v_mat[:, 1:]),
-            msk_up, msk_dn,
-            _pstack([list(r) for r in alb0]), _pstack(list(src0)),
-            bc(albedo), bc(emission))
-        fup_l, fdn_l, fup_cl, fdn_cl = dn
-        src_f = [src_f3[r] for r in range(NREG)]
-    else:
-        def up_step(carry, xs):
-            alb, src, alb_c, src_c = carry
-            (R9, T9, SU3, SD3, rcl, tcl, sucl, sdcl, u9, v9, clr,
-             clr_above) = xs
-            b = lambda x: x[:, None]
-            out = (_pstack([list(r) for r in alb]), _pstack(list(src)),
-                   alb_c, src_c)
-            mats = (_punstack(R9), _punstack(T9),
-                    [SU3[r] for r in range(NREG)],
-                    [SD3[r] for r in range(NREG)])
-            u9b = [b(u9[k]) for k in range(NREG * NREG)]
-            v9b = [b(v9[k]) for k in range(NREG * NREG)]
-            alb_n, src_n, alb_c_n, src_c_n = _lw_up_core(
-                (alb, src, alb_c, src_c), mats, (rcl, tcl, sucl, sdcl),
-                u9b, v9b, (b(clr), b(clr_above)), lw_opts)
-            tup = lambda A: tuple(tuple(row) for row in A)
-            return (tup(alb_n), tuple(src_n), alb_c_n, src_c_n), out
+    def up_step(carry, xs):
+        alb, src, alb_c, src_c = carry
+        (R9, T9, SU3, SD3, rcl, tcl, sucl, sdcl, u9, v9, clr,
+         clr_above) = xs
+        b = lambda x: x[:, None]
+        out = (_pstack([list(r) for r in alb]), _pstack(list(src)),
+               alb_c, src_c)
+        mats = (_punstack(R9), _punstack(T9),
+                [SU3[r] for r in range(NREG)],
+                [SD3[r] for r in range(NREG)])
+        u9b = [b(u9[k]) for k in range(NREG * NREG)]
+        v9b = [b(v9[k]) for k in range(NREG * NREG)]
+        alb_n, src_n, alb_c_n, src_c_n = _lw_up_core(
+            (alb, src, alb_c, src_c), mats, (rcl, tcl, sucl, sdcl),
+            u9b, v9b, (b(clr), b(clr_above)), lw_opts)
+        tup = lambda A: tuple(tuple(row) for row in A)
+        return (tup(alb_n), tuple(src_n), alb_c_n, src_c_n), out
 
-        carry0 = (alb0, src0, bc(albedo), bc(emission))
-        xs_up = (Rs, Ts, SUs, SDs,
-                 lev(r_cl), lev(t_cl), lev(su_cl), lev(sd_cl),
-                 _lev9(u_mat[:, :-1]), _lev9(v_mat[:, :-1]),
-                 lev(clear_layer), lev(clear_pad[:, :-2]))
-        (alb_f, src_f, alb_c_f, src_c_f), \
-            (alb_s9, src_s3, alb_c_s, src_c_s) \
-            = jax.lax.scan(up_step, carry0, xs_up, reverse=True)
+    carry0 = (alb0, src0, bc(albedo), bc(emission))
+    xs_up = (Rs, Ts, SUs, SDs,
+             lev(r_cl), lev(t_cl), lev(su_cl), lev(sd_cl),
+             _lev9(u_mat[:, :-1]), _lev9(v_mat[:, :-1]),
+             lev(clear_layer), lev(clear_pad[:, :-2]))
+    (alb_f, src_f, alb_c_f, src_c_f), \
+        (alb_s9, src_s3, alb_c_s, src_c_s) \
+        = jax.lax.scan(up_step, carry0, xs_up, reverse=True)
 
-        # ---- downward pass (radiation_spartacus_lw.F90:509-595)
-        def dn_step(carry, xs):
-            fdn, fdn_c = carry
-            (R9, T9, SU3, SD3, rcl, tcl, sucl, sdcl, src_n3, alb_n9,
-             src_cn, alb_cn, v9b_, clr, clr_below) = xs
-            b = lambda x: x[:, None]
-            mats = (_punstack(R9), _punstack(T9),
-                    [SU3[r] for r in range(NREG)],
-                    [SD3[r] for r in range(NREG)])
-            below = ([src_n3[r] for r in range(NREG)],
-                     _punstack(alb_n9), src_cn, alb_cn)
-            v9b = [b(v9b_[k]) for k in range(NREG * NREG)]
-            (fdn_n, fdn_c2), ys = _lw_dn_core(
-                (fdn, fdn_c), mats, (rcl, tcl, sucl, sdcl), below, v9b,
-                (b(clr), b(clr_below)))
-            return (tuple(fdn_n), fdn_c2), ys
+    # ---- downward pass (radiation_spartacus_lw.F90:509-595)
+    def dn_step(carry, xs):
+        fdn, fdn_c = carry
+        (R9, T9, SU3, SD3, rcl, tcl, sucl, sdcl, src_n3, alb_n9,
+         src_cn, alb_cn, v9b_, clr, clr_below) = xs
+        b = lambda x: x[:, None]
+        mats = (_punstack(R9), _punstack(T9),
+                [SU3[r] for r in range(NREG)],
+                [SD3[r] for r in range(NREG)])
+        below = ([src_n3[r] for r in range(NREG)],
+                 _punstack(alb_n9), src_cn, alb_cn)
+        v9b = [b(v9b_[k]) for k in range(NREG * NREG)]
+        (fdn_n, fdn_c2), ys = _lw_dn_core(
+            (fdn, fdn_c), mats, (rcl, tcl, sucl, sdcl), below, v9b,
+            (b(clr), b(clr_below)))
+        return (tuple(fdn_n), fdn_c2), ys
 
-        carry_dn0 = ((zcg,) * NREG, zcg)
-        xs_dn = (Rs, Ts, SUs, SDs,
-                 lev(r_cl), lev(t_cl), lev(su_cl), lev(sd_cl),
-                 src_s3, alb_s9, src_c_s, alb_c_s,
-                 _lev9(v_mat[:, 1:]), lev(clear_layer),
-                 lev(clear_pad[:, 2:]))
-        _, (fup_l, fdn_l, fup_cl, fdn_cl) = jax.lax.scan(
-            dn_step, carry_dn0, xs_dn)
+    carry_dn0 = ((zcg,) * NREG, zcg)
+    xs_dn = (Rs, Ts, SUs, SDs,
+             lev(r_cl), lev(t_cl), lev(su_cl), lev(sd_cl),
+             src_s3, alb_s9, src_c_s, alb_c_s,
+             _lev9(v_mat[:, 1:]), lev(clear_layer),
+             lev(clear_pad[:, 2:]))
+    _, (fup_l, fdn_l, fup_cl, fdn_cl) = jax.lax.scan(
+        dn_step, carry_dn0, xs_dn)
 
     tolev = lambda a: jnp.moveaxis(a, 0, 1)
     fup_g = jnp.concatenate([sum(src_f)[:, None], tolev(fup_l)], 1)

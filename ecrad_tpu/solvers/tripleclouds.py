@@ -5,7 +5,7 @@ Reference: radiation_tripleclouds_sw.F90:42-663,
 radiation_tripleclouds_lw.F90:38-607, radiation_regions.F90:35-202,
 radiation_overlap.F90:64-459.
 
-TPU formulation: the reference's per-column branches (is_clear_sky_layer,
+Batched formulation: the reference's per-column branches (is_clear_sky_layer,
 i_cloud_top short-cuts) become masked dense compute; region-coupled
 adding runs as a lax.scan over levels carrying (ncol, ng, nreg) states.
 The region axis (3) is unrolled into the vector ops; the interface
@@ -25,11 +25,17 @@ from ecrad_tpu.solvers.outputs import LwFluxes, SwFluxes
 from ecrad_tpu import profiling
 
 
+def _einsum(spec, a, b):
+    """Region-axis contraction at full f32 precision (never TF32)."""
+    return jnp.einsum(spec, a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _reduce_regions(x, spec_matrix):
     """(ncol, nreg, ng) → (broadband (ncol,), spectral (ncol, nspec))."""
     y = jnp.sum(x, axis=1)
     bb = jnp.sum(y, axis=-1)
-    sp = None if spec_matrix is None else y @ spec_matrix
+    sp = None if spec_matrix is None else jnp.matmul(
+        y, spec_matrix, precision=jax.lax.Precision.HIGHEST)
     return bb, sp
 
 
@@ -187,20 +193,8 @@ def solver_tripleclouds_sw(config: Config, od, ssa, g, od_cloud_b,
                            ssa_cloud_b, g_cloud_b, band_from_g,
                            cloud_fraction, fractional_std, overlap_param,
                            incoming_sw, cos_sza, albedo_diffuse,
-                           albedo_direct, spec_matrix=None,
-                           layout="cln") -> SwFluxes:
-    """radiation_tripleclouds_sw.F90:42-663 (batched, dense).
-
-    layout="knl": od/ssa/g arrive in kernel layout (nlev, ng, ncol)
-    for the fused Pallas path (pallas_tripleclouds.py)."""
-    if layout == "knl":
-        assert _use_fused_tc(config, spec_matrix, band_from_g), \
-            "kernel-layout inputs require the fused-solver configuration"
-    if _use_fused_tc(config, spec_matrix, band_from_g):
-        return _solver_tripleclouds_sw_fused(
-            config, od, ssa, g, od_cloud_b, ssa_cloud_b, g_cloud_b,
-            band_from_g, cloud_fraction, fractional_std, overlap_param,
-            incoming_sw, cos_sza, albedo_diffuse, albedo_direct, layout)
+                           albedo_direct, spec_matrix=None) -> SwFluxes:
+    """radiation_tripleclouds_sw.F90:42-663 (batched, dense)."""
     ncol, nlev, ng = od.shape
     nreg = 3
     mu0 = jnp.maximum(cos_sza, 1.0e-10)[:, None, None]
@@ -273,8 +267,8 @@ def solver_tripleclouds_sw(config: Config, od, ssa, g, od_cloud_b,
         albd = jnp.where(m, 0.0, albd)
         # interface mixing with v_matrix at this layer's top interface
         # unless this layer and the one above are both clear
-        mixed_alb = jnp.einsum("clr,clg->crg", v_l, alb)
-        mixed_albd = jnp.einsum("clr,clg->crg", v_l, albd)
+        mixed_alb = _einsum("clr,clg->crg", v_l, alb)
+        mixed_albd = _einsum("clr,clg->crg", v_l, albd)
         skip = (cc_this & cc_above)[:, None, None]
         alb_out = jnp.where(skip, alb, mixed_alb)
         albd_out = jnp.where(skip, albd, mixed_albd)
@@ -318,8 +312,8 @@ def solver_tripleclouds_sw(config: Config, od, ssa, g, od_cloud_b,
         slices = (jnp.sum(fup, 1), jnp.sum(fdn, 1), jnp.sum(fdir, 1))
         # mix through the interface BELOW this layer
         skip = (cc_this & cc_below)[:, None, None]
-        fdn_m = jnp.einsum("clr,crg->clg", v_below, fdn)
-        fdir_m = jnp.einsum("clr,crg->clg", v_below, fdir)
+        fdn_m = _einsum("clr,crg->clg", v_below, fdn)
+        fdir_m = _einsum("clr,crg->clg", v_below, fdir)
         fdn_out = jnp.where(skip, fdn, fdn_m)
         fdir_out = jnp.where(skip, fdir, fdir_m)
         return (((fdn_out, fdir_out), slices),
@@ -385,23 +379,8 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
                            ssa_cloud_b, g_cloud_b, band_from_g,
                            cloud_fraction, fractional_std, overlap_param,
                            planck_hl, emission, albedo,
-                           spec_matrix=None, layout="cln") -> LwFluxes:
-    """radiation_tripleclouds_lw.F90:38-607 (batched, dense).
-
-    layout="knl": od/planck_hl arrive in kernel layout (nlev, ng, ncol)
-    for the fused Pallas path (pallas_tripleclouds.py)."""
-    if layout == "knl":
-        assert (_use_fused_tc(config, spec_matrix, band_from_g)
-                and config.do_lw_cloud_scattering
-                and not config.do_lw_aerosol_scattering), \
-            "kernel-layout inputs require the fused-solver configuration"
-    if (_use_fused_tc(config, spec_matrix, band_from_g)
-            and config.do_lw_cloud_scattering
-            and not config.do_lw_aerosol_scattering):
-        return _solver_tripleclouds_lw_fused(
-            config, od, od_cloud_b, ssa_cloud_b, g_cloud_b, band_from_g,
-            cloud_fraction, fractional_std, overlap_param, planck_hl,
-            emission, albedo, layout)
+                           spec_matrix=None) -> LwFluxes:
+    """radiation_tripleclouds_lw.F90:38-607 (batched, dense)."""
     ncol, nlev, ng = od.shape
     nreg = 3
 
@@ -478,8 +457,8 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
         src = su_l + trans_l * (src_below + alb_below * sd_l) * inv_denom
         # total_source upsweep mixes with u[upper, lower]
         # (tripleclouds_lw.F90:248-250)
-        mixed_src = jnp.einsum("cul,clg->cug", u_l, src)
-        mixed_alb = jnp.einsum("clr,clg->crg", v_l, alb)
+        mixed_src = _einsum("cul,clg->cug", u_l, src)
+        mixed_alb = _einsum("clr,clg->crg", v_l, alb)
         skip = (cc_this & cc_above)[:, None, None]
         alb_out = jnp.where(skip, alb, mixed_alb)
         src_out = jnp.where(skip, src, mixed_src)
@@ -509,7 +488,7 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
         dn_bb, dn_sp = _reduce_regions(fdn, spec_matrix)
         slices = (jnp.sum(fup, 1), jnp.sum(fdn, 1))
         skip = (cc_this & cc_below)[:, None, None]
-        fdn_m = jnp.einsum("clr,crg->clg", v_below, fdn)
+        fdn_m = _einsum("clr,crg->clg", v_below, fdn)
         fdn_out = jnp.where(skip, fdn, fdn_m)
         return (fdn_out, slices), (up_bb, dn_bb, up_sp, dn_sp)
 
@@ -552,7 +531,7 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
 
         def deriv_step(dg, x):
             trans_l, u_below = x
-            dg = jnp.einsum("cul,clg->cug", u_below, dg) * trans_l
+            dg = _einsum("cul,clg->cug", u_below, dg) * trans_l
             return dg, jnp.sum(dg, axis=(1, 2))
 
         xs3 = (lev(trans), lev(u_mat[:, 1:]))
@@ -563,230 +542,3 @@ def solver_tripleclouds_lw(config: Config, od, ssa, g, od_cloud_b,
              jnp.ones((ncol, 1), od.dtype)], axis=1)
         out = out._replace(lw_derivatives=deriv)
     return out
-
-
-# ===========================================================================
-# Fused-kernel path (solvers/pallas_tripleclouds.py)
-# ===========================================================================
-
-
-def _use_fused_tc(config, spec_matrix, band_from_g):
-    """Fused Pallas Tripleclouds applies on accelerators for the
-    reduced (no spectral-profile) 3-region contract with
-    band-contiguous g ordering."""
-    from ecrad_tpu.solvers import adding
-    from ecrad_tpu.solvers.mcica import _gcounts
-    return (spec_matrix is None and adding._mode() == "pallas"
-            and config.nregions == 3
-            and _gcounts(band_from_g) is not None)
-
-
-def _fused_prep(config, cloud_fraction, fractional_std, overlap_param,
-                ncolp, dtype):
-    """Region properties + overlap matrices in kernel layout."""
-    import jax.numpy as jnp
-    from ecrad_tpu.solvers.adding import _pad_cols
-
-    ncol, nlev = cloud_fraction.shape
-    reg_fracs, od_scaling = calc_region_properties(
-        cloud_fraction, fractional_std,
-        config.cloud_pdf_shape == PdfShape.GAMMA,
-        config.cloud_fraction_threshold,
-        n_regions=config.nregions)
-    u_mat, v_mat, cloud_cover = calc_overlap_matrices(
-        reg_fracs, overlap_param, config.cloud_inhom_decorr_scaling,
-        config.cloud_fraction_threshold)
-    clear_layer = cloud_fraction <= 0.0
-
-    t3 = lambda x: _pad_cols(
-        jnp.transpose(x, (1, 2, 0)).astype(dtype), ncolp)
-    scal2 = t3(od_scaling)                       # (nlev, 2, ncolp)
-    rf3 = t3(reg_fracs)                          # (nlev, 3, ncolp)
-    m9 = lambda m: _pad_cols(jnp.transpose(
-        m.reshape(ncol, nlev + 1, 9), (1, 2, 0)).astype(dtype), ncolp)
-    u9, v9 = m9(u_mat), m9(v_mat)                # (nlev+1, 9, ncolp)
-    clear_m = _pad_cols(
-        clear_layer.astype(dtype).T[:, None, :], ncolp)
-    ccp = jnp.concatenate([jnp.ones((ncol, 1), bool), clear_layer,
-                           jnp.ones((ncol, 1), bool)], axis=1)
-    cc_pad = _pad_cols(ccp.astype(dtype).T[:, None, :], ncolp)
-    return dict(reg_fracs=reg_fracs, scal2=scal2, rf3=rf3, u9=u9,
-                v9=v9, clear_m=clear_m, cc_pad=cc_pad,
-                cloud_cover=cloud_cover)
-
-
-def _solver_tripleclouds_lw_fused(config, od, od_cloud_b, ssa_cloud_b,
-                                  g_cloud_b, band_from_g,
-                                  cloud_fraction, fractional_std,
-                                  overlap_param, planck_hl, emission,
-                                  albedo, layout) -> LwFluxes:
-    """Fused-kernel LW path (see solvers/pallas_tripleclouds.py);
-    layout="knl" receives od/planck_hl already in kernel layout."""
-    import jax.numpy as jnp
-    from ecrad_tpu.solvers import pallas_tripleclouds as ptc
-    from ecrad_tpu.solvers.adding import (_kernel_cols, _pad_cols,
-                                          _stack_bot, _stack_top,
-                                          _to_kern, _to_kern_surf)
-    from ecrad_tpu.solvers.mcica import _gcounts
-
-    ncol, nlev = cloud_fraction.shape
-    ncolp = _kernel_cols(ncol)
-    dt = od.dtype
-    gcounts = _gcounts(band_from_g)
-    P = _fused_prep(config, cloud_fraction, fractional_std,
-                    overlap_param, ncolp, dt)
-
-    big = ((lambda x: _pad_cols(x, ncolp)) if layout == "knl"
-           else (lambda x: _to_kern(x, ncolp)))
-    if layout == "knl":
-        band = lambda x: _pad_cols(jnp.transpose(x, (1, 2, 0)), ncolp)
-    else:
-        band = lambda x: _to_kern(x, ncolp)
-
-    albedo_b = jnp.broadcast_to(albedo, emission.shape)
-    src0 = _pad_cols(
-        jnp.einsum("cr,cg->rgc", P["reg_fracs"][:, -1, :], emission),
-        ncolp)
-
-    r = ptc.lw_fused(
-        big(od), band(od_cloud_b), band(ssa_cloud_b), band(g_cloud_b),
-        P["scal2"], P["clear_m"], P["rf3"], P["u9"], P["v9"],
-        P["cc_pad"], big(planck_hl),
-        _to_kern_surf(emission, ncolp), _to_kern_surf(albedo_b, ncolp),
-        src0, gcounts, config.do_lw_derivatives)
-
-    gcol = lambda x: x[:, :ncol].T                 # (ng,ncolp)->(ncol,ng)
-    bbl = lambda x: x[:, :ncol]                    # (nlev,ncolp)->(nlev,ncol)
-
-    src_top = r["src_top_t"][:, :, :ncol]          # (3, ng, ncol)
-    up_toa_g = jnp.sum(src_top, axis=0).T          # (ncol, ng)
-    fup_bb = _stack_top(jnp.sum(src_top, axis=(0, 1)),
-                        bbl(r["up_bb_t"]))
-    fdn_bb = _stack_top(jnp.zeros((ncol,), dt), bbl(r["dn_bb_t"]))
-    # clear up: the P2 accumulator stores ABOVE-layer fluxes (half
-    # levels 0..nlev-1); the surface value is emission + albedo*fdn
-    fup_toa_c = gcol(r["fup_toa_c"])
-    fup_surf_c = gcol(r["fup_surf_c"])
-    clear_up = _stack_bot(bbl(r["up_bb_c"]),
-                          jnp.sum(fup_surf_c, axis=-1))
-    clear_dn = _stack_top(jnp.zeros((ncol,), dt), bbl(r["dn_bb_c"]))
-
-    out = LwFluxes(
-        flux_up=fup_bb, flux_dn=fdn_bb,
-        flux_up_clear=clear_up, flux_dn_clear=clear_dn,
-        lw_dn_surf_g=gcol(r["fdn_surf_t"]), lw_up_toa_g=up_toa_g,
-        lw_dn_surf_clear_g=gcol(r["fdn_surf_c"]),
-        lw_up_toa_clear_g=fup_toa_c,
-        cloud_cover=P["cloud_cover"])
-    if config.do_lw_derivatives:
-        deriv = jnp.concatenate(
-            [bbl(r["deriv_t"]).T, jnp.ones((ncol, 1), dt)], axis=1)
-        out = out._replace(lw_derivatives=deriv)
-    return out
-
-
-def _solver_tripleclouds_sw_fused(config, od, ssa, g, od_cloud_b,
-                                  ssa_cloud_b, g_cloud_b, band_from_g,
-                                  cloud_fraction, fractional_std,
-                                  overlap_param, incoming_sw, cos_sza,
-                                  albedo_diffuse, albedo_direct,
-                                  layout) -> SwFluxes:
-    """Fused-kernel SW path (see solvers/pallas_tripleclouds.py)."""
-    import jax.numpy as jnp
-    from ecrad_tpu.solvers import pallas_tripleclouds as ptc
-    from ecrad_tpu.solvers.adding import (_kernel_cols, _pad_cols,
-                                          _stack_top, _to_kern,
-                                          _to_kern_surf)
-    from ecrad_tpu.solvers.mcica import _gcounts
-
-    ncol, nlev = cloud_fraction.shape
-    ncolp = _kernel_cols(ncol)
-    dt = od.dtype
-    gcounts = _gcounts(band_from_g)
-    P = _fused_prep(config, cloud_fraction, fractional_std,
-                    overlap_param, ncolp, dt)
-    reg_fracs = P["reg_fracs"]
-
-    big = ((lambda x: _pad_cols(x, ncolp)) if layout == "knl"
-           else (lambda x: _to_kern(x, ncolp)))
-    if layout == "knl":
-        band = lambda x: _pad_cols(jnp.transpose(x, (1, 2, 0)), ncolp)
-    else:
-        band = lambda x: _to_kern(x, ncolp)
-
-    mu0 = jnp.maximum(cos_sza, 1.0e-10)
-    mu0k = _pad_cols(mu0[None, :].astype(dt), ncolp)
-    incoming_k = _to_kern_surf(incoming_sw, ncolp)
-    fdir0 = _pad_cols(jnp.einsum("cr,cg->rgc",
-                                 reg_fracs[:, 0, :], incoming_sw), ncolp)
-
-    alb_dif = jnp.broadcast_to(albedo_diffuse, incoming_sw.shape)
-    albd_mu0 = cos_sza[:, None] * jnp.broadcast_to(albedo_direct,
-                                                   incoming_sw.shape)
-    # clear scene: adding_sw_reduced semantics (clamped mu0)
-    albd_mu0_c = mu0[:, None] * jnp.broadcast_to(albedo_direct,
-                                                 incoming_sw.shape)
-    # regions >=2 active at the surface only if the lowest layer is
-    # cloudy (tripleclouds_sw.F90 mask_srf)
-    low_cloudy = cloud_fraction[:, -1] > 0.0
-    mask_srf = jnp.concatenate(
-        [jnp.ones((ncol, 1), bool),
-         jnp.broadcast_to(low_cloudy[:, None], (ncol, 2))], axis=1)
-    mk3 = lambda x: _pad_cols(jnp.where(
-        mask_srf[:, :, None], x[:, None, :],
-        0.0).transpose(1, 2, 0).astype(dt), ncolp)
-    alb0_t = mk3(alb_dif)
-    albd0_t = mk3(albd_mu0)
-
-    r = ptc.sw_fused(
-        big(od), big(ssa), big(g), band(od_cloud_b), band(ssa_cloud_b),
-        band(g_cloud_b), P["scal2"], P["clear_m"], P["v9"], P["cc_pad"],
-        mu0k, incoming_k, fdir0,
-        _to_kern_surf(alb_dif, ncolp), _to_kern_surf(albd_mu0_c, ncolp),
-        alb0_t, albd0_t, gcounts,
-        config.do_sw_delta_scaling_with_gases)
-
-    gcol = lambda x: x[:, :ncol].T
-    bbl = lambda x: x[:, :ncol]
-    mu0p = jnp.maximum(cos_sza, 0.0)
-
-    # TOA fluxes: fup0 = fdir0 * albd_top per region
-    fup0 = (fdir0 * r["albd_top"])[:, :, :ncol]    # (3, ng, ncol)
-    up_toa_g = jnp.sum(fup0, axis=0).T
-    up0_bb = jnp.sum(fup0, axis=(0, 1))
-    dir0_bb = jnp.sum(fdir0[:, :, :ncol], axis=(0, 1))
-    inc_bb = jnp.sum(incoming_sw, axis=-1)
-
-    fup_bb = _stack_top(up0_bb, bbl(r["up_bb_t"]))
-    fdn_diff_bb = _stack_top(jnp.zeros((ncol,), dt), bbl(r["dn_bb_t"]))
-    fdir_bb = mu0p[:, None] * _stack_top(dir0_bb, bbl(r["dir_bb_t"]))
-
-    up_toa_c_g = incoming_sw * gcol(r["albd_top_c"])
-    clear_up = _stack_top(jnp.sum(up_toa_c_g, -1), bbl(r["up_bb_c"]))
-    clear_dn_diff = _stack_top(jnp.zeros((ncol,), dt),
-                               bbl(r["dn_bb_c"]))
-    clear_dir = mu0p[:, None] * _stack_top(inc_bb, bbl(r["dir_bb_c"]))
-
-    day = (cos_sza > 0.0)
-
-    def zn(x):
-        if x is None:
-            return None
-        d = day.reshape(day.shape + (1,) * (x.ndim - 1))
-        return jnp.where(d, x, 0.0)
-
-    return SwFluxes(
-        flux_up=zn(fup_bb),
-        flux_dn=zn(fdn_diff_bb + fdir_bb),
-        flux_dn_direct=zn(fdir_bb),
-        flux_up_clear=zn(clear_up),
-        flux_dn_clear=zn(clear_dn_diff + clear_dir),
-        flux_dn_direct_clear=zn(clear_dir),
-        sw_dn_diffuse_surf_g=zn(gcol(r["fdn_surf_t"])),
-        sw_dn_direct_surf_g=zn(mu0p[:, None] * gcol(r["fdir_surf_t"])),
-        sw_up_toa_g=zn(up_toa_g),
-        sw_dn_diffuse_surf_clear_g=zn(gcol(r["fdn_surf_c"])),
-        sw_dn_direct_surf_clear_g=zn(mu0[:, None]
-                                     * gcol(r["fdir_surf_c"])),
-        sw_up_toa_clear_g=zn(up_toa_c_g),
-        cloud_cover=P["cloud_cover"])

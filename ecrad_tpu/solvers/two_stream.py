@@ -1,12 +1,13 @@
 """Two-stream layer coefficients (reference: radiation_two_stream.F90).
 
-All functions are elementwise over arrays shaped ``(..., nlev, ng)`` (batch
-dims leading, spectral g-points last → TPU lanes), fully fusable by XLA.
+All functions are elementwise over arrays of any matching shape (the
+solvers use ``(..., nlev, ng)`` or the kernel tiles), fully fusable by
+XLA.
 
 Numerical notes vs the reference:
   * The reference promotes k/exponential math to double precision islands
     (radiation_two_stream.F90:28 jprd usage). Here the dtype follows the
-    input; run f64 on CPU for golden-file validation, f32 on TPU with the
+    input; run f64 for golden-file validation, f32 in production with the
     same guard constants the reference uses for its single-precision build
     (KMIN_SP = 1e-6, radiation_two_stream.F90:616-622).
 """
@@ -21,20 +22,6 @@ from ecrad_tpu.constants import LW_DIFFUSIVITY
 def _k_min(dtype):
     # Meador-Weaver Eq 18 guard: 1e-12 in dp, 1e-6 in sp
     return 1.0e-12 if dtype == jnp.float64 else 1.0e-6
-
-
-def _expm1_kahan(x):
-    """expm1 with full relative accuracy from exp/log only (Kahan's
-    reconstruction): Pallas TPU has no expm1 primitive, and 1-exp(-y)
-    loses all relative accuracy for small y without it.  u = e^x;
-    (u-1)*x/log(u) corrects the rounding of u-1 exactly where it
-    matters (u ~ 1)."""
-    u = jnp.exp(x)
-    um1 = u - 1.0
-    # u == 1: expm1 = x (to roundoff); u == 0 (underflow): exactly -1
-    logu = jnp.log(jnp.where(u == 1.0, jnp.e, u))
-    out = jnp.where(u == 1.0, x, um1 * x / logu)
-    return jnp.where(u == 0.0, -1.0, out)
 
 
 def delta_eddington(od, ssa, g):
@@ -140,7 +127,7 @@ def lw_no_scattering_trans(od, planck_top, planck_bot):
     return transmittance, source_up, source_dn
 
 
-def sw_ref_trans(mu0, od, ssa, g, pallas_safe=False):
+def sw_ref_trans(mu0, od, ssa, g):
     """SW Meador & Weaver (1980) reflectance/transmittance
     (radiation_two_stream.F90:563-775 calc_ref_trans_sw).
 
@@ -185,18 +172,8 @@ def sw_ref_trans(mu0, od, ssa, g, pallas_safe=False):
 
     exponential = jnp.exp(-k * od)
     exponential2 = exponential * exponential
-    # 1 - exp(-2 k od), computed to relative accuracy.  Inside Pallas
-    # kernels (no expm1 primitive) the small-argument branch uses the
-    # cubic series (rel. err < x^3/24 < 5e-8 at the 0.01 threshold),
-    # reusing the already-computed exponential for the large branch —
-    # cheaper than the Kahan exp/log reconstruction and equally accurate
-    # in the conservative-scattering k -> 0 limit.
-    if pallas_safe:
-        x2 = 2.0 * k * od
-        series = x2 * (1.0 - 0.5 * x2 * (1.0 - x2 * (1.0 / 3.0)))
-        one_minus_exp2 = jnp.where(x2 < 0.01, series, 1.0 - exponential2)
-    else:
-        one_minus_exp2 = -jnp.expm1(-2.0 * k * od)
+    # 1 - exp(-2 k od), computed to relative accuracy
+    one_minus_exp2 = -jnp.expm1(-2.0 * k * od)
     k_mu0 = k * mu0
     one_minus_kmu0_sqr = (1.0 - k_mu0) * (1.0 + k_mu0)
     k_2_exponential = 2.0 * k * exponential

@@ -19,9 +19,9 @@ def rng():
 
 
 def _cmp(monkeypatch, fn, *args, **kw):
-    monkeypatch.setenv("ECRAD_TPU_ASSOC_SCAN", "0")
+    monkeypatch.setenv("ECRAD_TPU_ADDING", "scan")
     ref = fn(*args, **kw)
-    monkeypatch.setenv("ECRAD_TPU_ASSOC_SCAN", "1")
+    monkeypatch.setenv("ECRAD_TPU_ADDING", "assoc")
     out = fn(*args, **kw)
     for name in ref._fields:
         r, o = getattr(ref, name), getattr(out, name)

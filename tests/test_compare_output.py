@@ -1,4 +1,4 @@
-"""Evaluation toolkit (tools/compare_output.py): the tpu-repo
+"""Evaluation toolkit (tools/compare_output.py): this repository's
 equivalent of the reference's practical/compare_output*.py scripts."""
 
 import os

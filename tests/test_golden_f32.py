@@ -3,17 +3,15 @@
 The reference ships single-precision builds validated at LW/SW max-abs
 error <= 0.5 W m-2 against the same double-precision reference outputs
 (test/ifs/CMakeLists.txt:15-18, Makefile_include `SINGLE_PRECISION`).
-Production on TPU is float32, so the same bar must hold for this
+Production on the GPU is float32, so the same bar must hold for this
 framework: run the deterministic/golden configurations with every input
 cast to f32 and all math traced at f32 (jax disable_x64), and compare
 against the committed double-precision reference files at the sp
 thresholds.
 
-The TPU device itself is additionally covered by test_tpu_smoke.py
-(opt-in, RUN_TPU_TESTS=1), which runs the same configuration on the
-real chip; this module proves the *algorithm* meets the sp bar, the
-smoke test proves the *hardware path* (bf16 matmul lowering is disabled
-via jax_default_matmul_precision=highest in ecrad_tpu.jax_setup).
+The device path itself is covered by chip_smoke.py, which compares
+float32 with float64 of the same code on the GPU at the same bar; this
+module proves the *algorithm* meets the sp bar.
 """
 
 import os

@@ -3,6 +3,8 @@
 driver/test_random_number_generator.F90): numerical edge cases and
 statistical checks that golden-file tests cannot isolate."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -49,7 +51,8 @@ def test_fast_expm_repeated_eigenvalue_f32():
 def sampler():
     from ecrad_tpu.io.netcdf import NcFile
     from ecrad_tpu.solvers import cloud_generator_exact as cge
-    with NcFile("/root/reference/data/mcica_gamma.nc") as f:
+    from ecrad_tpu.data import DATA_DIR
+    with NcFile(os.path.join(DATA_DIR, "mcica_gamma.nc")) as f:
         return cge.PdfSampler(f.get("fsd"), f.get("x").T)
 
 
@@ -124,11 +127,12 @@ def test_rng_uniformity():
 
 
 def test_pdf_cheb_matches_lut():
-    """The Chebyshev fit used by the TPU device generator must reproduce
+    """The Chebyshev fit used by the on-device generator must reproduce
     the bilinear LUT sampling (radiation_pdf_sampler.F90:59-105) to well
     inside McICA sampling noise, for both PDF shapes."""
     import jax.numpy as jnp
 
+    from ecrad_tpu.data import DATA_DIR
     from ecrad_tpu.io.netcdf import NcFile
     from ecrad_tpu.solvers.cloud_generator import (fit_pdf_cheb,
                                                    sample_pdf_cheb,
@@ -136,7 +140,7 @@ def test_pdf_cheb_matches_lut():
 
     for name, tol in (("mcica_gamma.nc", 6e-3),
                       ("mcica_lognormal.nc", 1e-3)):
-        with NcFile(f"/root/reference/data/{name}") as f:
+        with NcFile(os.path.join(DATA_DIR, name)) as f:
             pdf = {"fsd": f.get("fsd"), "val": f.get("x").T}
         fit = fit_pdf_cheb(pdf)
         fsd = jnp.asarray(np.linspace(0.05, 3.95, 40))[:, None, None]
@@ -149,7 +153,7 @@ def test_pdf_cheb_matches_lut():
 
 
 def test_device_generator_statistics():
-    """Statistical contract of the TPU device generator (counter-based
+    """Statistical contract of the on-device generator (counter-based
     RNG + Chebyshev PDF sampling), mirroring the host-generator test
     above and driver/test_cloud_generator.F90."""
     import jax.numpy as jnp

@@ -43,3 +43,19 @@ def test_config_ecckd_namelist():
     cfg = Config.from_namelist(os.path.join(TEST_IFS,
                                             "configCY49R1_ecckd.nam"))
     assert cfg.gas_model_sw == GasModel.ECCKD
+
+
+def test_vendored_flagship_namelist_matches_builder():
+    """The vendored flagship namelist gives the builder's Config and
+    driver settings, so the CLI runs the benchmarked configuration."""
+    import dataclasses
+
+    import __graft_entry__ as ge
+    from ecrad_tpu.data import DATA_DIR
+    from ecrad_tpu.io.input import DriverConfig
+
+    nam = os.path.join(DATA_DIR, "io", "configCY49R1_flagship.nam")
+    assert Config.from_namelist(nam) == ge.flagship_config()
+    driver = DriverConfig.from_namelist(nam)
+    assert dataclasses.replace(driver, iverbose=0) == dataclasses.replace(
+        ge._flagship_driver(), iverbose=0)

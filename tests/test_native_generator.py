@@ -2,6 +2,8 @@
 must be bit-identical for all overlap schemes (the golden McICA results
 depend on exact draw order)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -10,7 +12,8 @@ import pytest
 def sampler():
     from ecrad_tpu.solvers import cloud_generator_exact as cge
     from ecrad_tpu.io.netcdf import NcFile
-    with NcFile("/root/reference/data/mcica_gamma.nc") as f:
+    from ecrad_tpu.data import DATA_DIR
+    with NcFile(os.path.join(DATA_DIR, "mcica_gamma.nc")) as f:
         return cge.PdfSampler(f.get("fsd"), f.get("x").T)
 
 

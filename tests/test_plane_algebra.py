@@ -1,7 +1,7 @@
 """Unit tests for the plane-form ("structure of arrays") small-matrix
 algebra in solvers/matrix.py (pl_matmul, pl_matvec, _pl_lu,
-pl_solve_vec, pl_solve_mat, pl_expm) — the TPU-fast representation of
-the SPARTACUS layer math (see matrix.py plane-algebra notes).
+pl_solve_vec, pl_solve_mat, pl_expm) — the representation of the
+SPARTACUS layer math (see matrix.py plane-algebra notes).
 
 Validated against the array-form ops and scipy on random
 exchange-structured generator matrices, including the

@@ -150,28 +150,31 @@ def test_encroachment_namelist_aliases():
     assert c.sw_entrapment == Entrapment.ZERO
 
 
-def test_kernel_layout_gating_accepts_tripleclouds():
-    """Round 5: use_kernel_layout admits Tripleclouds (fused Pallas
-    path) under the same structural conditions as McICA, and rejects
-    n_regions=2 (the fused kernels are 3-region)."""
-    from unittest import mock
-
+def test_kernel_layout_gating_accepts_tripleclouds(monkeypatch):
+    """use_kernel_layout follows the backend choice: with the fused
+    Triton sweeps it admits McICA and rejects Tripleclouds (2 or 3
+    regions), whose solver reads only the classic layout; with the scan
+    sweeps (the CPU choice) nothing uses the kernel layout."""
+    from ecrad_tpu import backend
     from ecrad_tpu.config import Config, Solver
     from ecrad_tpu.interface import setup_radiation, use_kernel_layout
 
     config, tables = setup_radiation(Config(
+        sw_solver=Solver.MCICA, lw_solver=Solver.MCICA,
+        do_lw_aerosol_scattering=False))
+    tc_config, tc_tables = setup_radiation(Config(
         sw_solver=Solver.TRIPLECLOUDS, lw_solver=Solver.TRIPLECLOUDS,
         do_lw_aerosol_scattering=False))
     cloud = {"fraction": np.zeros((4, 7))}
-    with mock.patch("ecrad_tpu.solvers.adding._mode",
-                    return_value="pallas"):
-        assert use_kernel_layout(config, tables, cloud)
-        cfg2 = dataclasses_replace(config, nregions=2)
-        assert not use_kernel_layout(cfg2, tables, cloud)
-    # scan mode (CPU) never uses the kernel layout
-    with mock.patch("ecrad_tpu.solvers.adding._mode",
-                    return_value="scan"):
-        assert not use_kernel_layout(config, tables, cloud)
+    monkeypatch.delenv("ECRAD_TPU_ADDING", raising=False)
+    monkeypatch.setitem(backend._TABLE, "cpu", backend._TABLE["gpu"])
+    assert use_kernel_layout(config, tables, cloud)
+    assert not use_kernel_layout(tc_config, tc_tables, cloud)
+    assert not use_kernel_layout(
+        dataclasses_replace(tc_config, nregions=2), tc_tables, cloud)
+    # the scan sweeps never use the kernel layout
+    monkeypatch.setenv("ECRAD_TPU_ADDING", "scan")
+    assert not use_kernel_layout(config, tables, cloud)
 
 
 def dataclasses_replace(cfg, **kw):

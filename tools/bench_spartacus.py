@@ -5,8 +5,7 @@ shapes, so layer-matrix optimizations can be iterated without paying
 the full-pipeline compile each time.
 
 Usage: python tools/bench_spartacus.py [sw|lw|both] [--ncol N] [--ng G]
-Env: ECRAD_TPU_SPARTACUS_CHUNK tunes the layer-matrix level chunk;
-ECRAD_TPU_ADDING=scan forces the lax.scan sweeps (vs the Pallas kernels).
+Env: ECRAD_TPU_SPARTACUS_CHUNK tunes the layer-matrix level chunk.
 """
 
 import argparse

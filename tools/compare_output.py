@@ -4,7 +4,7 @@
 The reference ships a Python evaluation layer for judging physical
 changes (practical/compare_output.py, compare_output_profile.py,
 compare_output_scalar.py + the ecradplot package); this is its
-tpu-repo equivalent, built on ecrad_tpu.io.netcdf (no xarray/seaborn
+equivalent here, built on ecrad_tpu.io.netcdf (no xarray/seaborn
 dependency) with a headless tabulated mode for CI use:
 
   # tabulated per-variable diff statistics (always available)

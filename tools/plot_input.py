@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Visualize an ecRad-style input file: cloud, thermodynamic and gas
 fields as column × pressure cross-sections plus surface properties —
-the tpu-repo equivalent of the reference's practical/plot_input.py /
+this repository's equivalent of the reference's practical/plot_input.py /
 plot_input_profile.py (built on ecrad_tpu.io.netcdf + matplotlib, no
 xarray/seaborn).
 

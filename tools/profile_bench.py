@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile one bench step on the real TPU and summarize op durations.
+"""Profile one bench step on the GPU and summarize op durations.
 
 Writes a jax.profiler trace, then parses the perfetto trace JSON to sum
 device-op durations grouped by (fusion) op name, printing the top-N.
@@ -59,7 +59,7 @@ def main():
     with gzip.open(paths[0], "rt") as f:
         trace = json.load(f)
 
-    # device-side events: pick pids whose process name mentions TPU/device
+    # device-side events: the "/device:GPU:N" processes, thread "XLA Ops"
     pid_name = {}
     tid_name = {}
     for ev in trace.get("traceEvents", []):
@@ -78,10 +78,7 @@ def main():
             continue
         pname = pid_name.get(ev.get("pid"), "")
         tname = tid_name.get((ev.get("pid"), ev.get("tid")), "")
-        if not ("TPU" in pname or "Device" in pname or
-                "XLA Ops" in tname or "Steps" in tname):
-            continue
-        if "XLA Ops" not in tname:
+        if "/device:GPU" not in pname or "XLA Ops" not in tname:
             continue
         d = ev.get("dur", 0) / 1e3  # ms
         name = ev.get("name", "?")

@@ -2,7 +2,7 @@
 """Device-time profile of one bench step, bucketed by Dr-Hook scope name.
 
 Runs the flagship step under jax.profiler with a perfetto trace, then
-aggregates TPU-op durations by the named_scope labels that
+aggregates GPU-op durations by the named_scope labels that
 ecrad_tpu.profiling.traced() attaches (same module:proc names as the
 reference's Dr Hook).  Usage:
 
@@ -59,7 +59,7 @@ def main():
         trace = json.load(f)
 
     events = trace["traceEvents"]
-    # device tracks: pid names containing "TPU" and thread "XLA Ops"
+    # device tracks: the "/device:GPU:N" processes, thread "XLA Ops"
     pid_names = {}
     tid_names = {}
     for e in events:
@@ -70,7 +70,7 @@ def main():
                 tid_names[(e["pid"], e["tid"])] = e["args"].get("name", "")
 
     device_pids = {p for p, n in pid_names.items()
-                   if "TPU" in n or "Device" in n}
+                   if "/device:GPU" in n}
     buckets = {}
     total = 0.0
     for e in events:
